@@ -1,0 +1,191 @@
+"""Neural building blocks (port of qpwcnet_tpu/models/blocks.py).
+
+Tensors are logical NCHW in channels_last memory (qpwcnet_torch/layout.py).
+Parameters are float32; each block computes in its ``dtype``; BatchNorm,
+the flow conv and the OptFlow output scale stay float32
+(``blocks.py:245-273``).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+
+from qpwcnet_torch.layout import cat_channels, nchw, nhwc
+from qpwcnet_torch.ops.activations import mish
+from qpwcnet_torch.ops.cost_volume import cost_volume
+from qpwcnet_torch.ops.cuda.warp_cv_kernel import (
+    FUSED_WARP_WINDOW,
+    warp_cost_volume_cuda,
+)
+from qpwcnet_torch.ops.warp import backward_warp
+from qpwcnet_torch.quantize.qlayers import QConv, QConvTranspose
+
+
+class SepConv(nn.Module):
+    """Keras SeparableConv2D: depthwise kxk (no bias) + pointwise 1x1
+    (bias) + Mish."""
+
+    def __init__(self, in_ch: int, features: int, kernel: int = 3,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.depthwise = QConv(in_ch, in_ch, kernel, groups=in_ch,
+                               use_bias=False, dtype=dtype)
+        self.pointwise = QConv(in_ch, features, 1, dtype=dtype, act=mish)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.pointwise(self.depthwise(x))
+
+
+class DownConv(nn.Module):
+    """Encoder stage: Conv(3x3, s2, Mish) -> Conv(3x3, Mish) ->
+    Conv(3x3, Mish), no normalizer."""
+
+    def __init__(self, in_ch: int, features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv_a = QConv(in_ch, features, 3, stride=2, dtype=dtype,
+                            act=mish)
+        self.conv_aa = QConv(features, features, 3, dtype=dtype, act=mish)
+        self.conv_b = QConv(features, features, 3, dtype=dtype, act=mish)
+
+    def params(self) -> list[tuple[torch.Tensor, torch.Tensor]]:
+        """[(weight, bias)] of conv_a, conv_aa, conv_b (the fused stem
+        kernel's argument)."""
+        return [(c.weight, c.bias)
+                for c in (self.conv_a, self.conv_aa, self.conv_b)]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv_b(self.conv_aa(self.conv_a(x)))
+
+
+class UpConv(nn.Module):
+    """Decoder stage: ConvTranspose(4x4, s2, Mish)."""
+
+    def __init__(self, in_ch: int, features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv_up = QConvTranspose(in_ch, features, dtype=dtype, act=mish)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv_up(x)
+
+
+class BatchNorm(nn.Module):
+    """Flax ``nn.BatchNorm`` in float32 (Keras defaults: eps 1e-3,
+    momentum .99).
+
+    Train mode normalizes with the batch statistics, the biased variance
+    E[x²] - E[x]² clipped at 0 (Flax's fast variance), and updates
+    ``running = momentum * running + (1 - momentum) * batch`` — torch's
+    BatchNorm2d would update with the unbiased variance.
+    """
+
+    def __init__(self, features: int, momentum: float = 0.99,
+                 eps: float = 1e-3):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        if self.training:
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean,
+                              min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_((1.0 - m) * mean)
+                self.running_var.mul_(m).add_((1.0 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
+
+
+class OptFlow(nn.Module):
+    """Flow-regression head: 4 SepConvs (128/64/32/16, Mish) -> 1x1 Conv
+    Mish -> BatchNorm -> 3x3 Conv (2 ch, no bias), times sqrt(h² + w²) of
+    the input resolution under head_scale='diag' (1 under 'unit')."""
+
+    def __init__(self, in_ch: int, filters: Sequence[int] = (128, 64, 32, 16),
+                 dtype: torch.dtype = torch.float32,
+                 head_scale: str = "diag"):
+        super().__init__()
+        if head_scale not in ("diag", "unit"):
+            raise ValueError(f"unknown head_scale: {head_scale!r}")
+        self.head_scale = head_scale
+        chans = [in_ch, *filters]
+        self.of_feats = nn.ModuleList(
+            SepConv(chans[i], chans[i + 1], dtype=dtype)
+            for i in range(len(filters)))
+        self.conv1x1 = QConv(filters[-1], filters[-1], 1, dtype=dtype,
+                             act=mish)
+        self.norm = BatchNorm(filters[-1])
+        self.of_flow = QConv(filters[-1], 2, 3, use_bias=False,
+                             dtype=torch.float32)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, w = x.shape[2], x.shape[3]
+        scale = (float(h * h + w * w) ** 0.5
+                 if self.head_scale == "diag" else 1.0)
+        for layer in self.of_feats:
+            x = layer(x)
+        x = self.norm(self.conv1x1(x))
+        return scale * self.of_flow(x)
+
+
+class FlowBlock(nn.Module):
+    """Coarsest-level flow estimator: concat[cost_volume(prv, nxt), prv,
+    nxt] -> OptFlow."""
+
+    def __init__(self, feat_ch: int, dtype: torch.dtype = torch.float32,
+                 cv_impl: str = "auto", head_scale: str = "diag"):
+        super().__init__()
+        self.cv_impl = cv_impl
+        self.flow = OptFlow(81 + 2 * feat_ch, dtype=dtype,
+                            head_scale=head_scale)
+
+    def forward(self, prv: torch.Tensor, nxt: torch.Tensor) -> torch.Tensor:
+        cost = nchw(cost_volume(nhwc(prv), nhwc(nxt), impl=self.cv_impl))
+        return self.flow(cat_channels([cost, prv, nxt]))
+
+
+class UpFlowBlock(nn.Module):
+    """Per-level refinement: warp nxt by the upsampled flow, correlate
+    against prv, concat[cost, prv, flo] -> OptFlow (the warped features are
+    not concatenated). residual=True adds the head's output to flo.
+
+    cv_impl='fused' runs the fused warp+correlate kernel, whose warp
+    clamps each displacement to ±FUSED_WARP_WINDOW."""
+
+    def __init__(self, feat_ch: int, dtype: torch.dtype = torch.float32,
+                 cv_impl: str = "auto", head_scale: str = "diag",
+                 residual: bool = False):
+        super().__init__()
+        self.cv_impl = cv_impl
+        self.residual = residual
+        self.flow = OptFlow(81 + feat_ch + 2, dtype=dtype,
+                            head_scale=head_scale)
+
+    def forward(self, prv: torch.Tensor, nxt: torch.Tensor,
+                flo: torch.Tensor) -> torch.Tensor:
+        flo32 = nhwc(flo.float()).contiguous()
+        if self.cv_impl == "fused":
+            cost = warp_cost_volume_cuda(nhwc(prv), nhwc(nxt), flo32,
+                                         warp_window=FUSED_WARP_WINDOW)
+        else:
+            nxt_w = backward_warp(nhwc(nxt), flo32)
+            cost = cost_volume(nhwc(prv), nxt_w, impl=self.cv_impl)
+        feat = cat_channels([nchw(cost), prv, flo.to(prv.dtype)])
+        out = self.flow(feat)
+        if self.residual:
+            out = out + flo.to(out.dtype)
+        return out

@@ -1,0 +1,242 @@
+"""PWC-Net flow model (port of the flow half of
+qpwcnet_tpu/models/pwcnet.py): Encoder, Decoder, Flower, PWCFlowNet and
+build_flow_net.
+
+``PWCFlowNet.forward`` keeps JAX's NHWC boundary: (B, H, W, 6) in, the
+final (B, H, W, 2) float32 flow out (or the 6 multiscale flows, coarse
+to fine, with ``multiscale=True``). Inside, tensors are logical NCHW in
+channels_last memory (qpwcnet_torch/layout.py).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence, Union
+
+import torch
+import torch.nn as nn
+
+from qpwcnet_torch.layout import CHANNELS_LAST, cat_channels, nchw, nhwc
+from qpwcnet_torch.models.blocks import (
+    BatchNorm,
+    DownConv,
+    FlowBlock,
+    UpConv,
+    UpFlowBlock,
+)
+from qpwcnet_torch.ops.cuda.stem_kernel import (
+    STEM_CHANNELS,
+    downconv_stage_cuda,
+)
+from qpwcnet_torch.ops.resize import upsample2x_bilinear_nchw
+from qpwcnet_torch.quantize.qlayers import QConv, QConvTranspose
+
+ENCODER_FILTERS = (16, 32, 64, 128, 256)
+DECODER_FILTERS = (128, 64, 32, 16)
+
+CvImpl = Union[str, Sequence[str]]
+
+
+class Encoder(nn.Module):
+    """Siamese 5-stage feature pyramid, strides 1/2..1/32, no normalizer.
+
+    The first ``stem_stages`` stages run as one fused CUDA kernel each
+    (ops/cuda/stem_kernel.py), reading the same parameters as the
+    DownConv modules; on CPU tensors that is the unfused composition.
+    """
+
+    def __init__(self, filters: Sequence[int] = ENCODER_FILTERS,
+                 dtype: torch.dtype = torch.float32, stem_stages: int = 0):
+        super().__init__()
+        if any(f not in STEM_CHANNELS for f in filters[:stem_stages]):
+            raise ValueError(
+                f"stem_stages={stem_stages}: the fused stem kernel takes "
+                f"stages with {STEM_CHANNELS} output channels")
+        self.dtype = dtype
+        self.stem_stages = stem_stages
+        chans = [3, *filters]
+        self.stages = nn.ModuleList(
+            DownConv(chans[i], chans[i + 1], dtype=dtype)
+            for i in range(len(filters)))
+
+    def forward(self, img: torch.Tensor) -> list[torch.Tensor]:
+        """img: (B, 3, H, W) -> [img, 1/2, ..., 1/32] NCHW features."""
+        feats = [img]
+        f = img.to(self.dtype)
+        for i, stage in enumerate(self.stages):
+            if i < self.stem_stages:
+                f = nchw(downconv_stage_cuda(nhwc(f).contiguous(),
+                                             stage.params(), self.dtype))
+            else:
+                f = stage(f)
+            feats.append(f)
+        return feats
+
+
+class Decoder(nn.Module):
+    """4 UpConv stages with skip-concat [up, enc] against the encoder
+    feature of matching scale."""
+
+    def __init__(self, filters: Sequence[int] = DECODER_FILTERS,
+                 enc_filters: Sequence[int] = ENCODER_FILTERS,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        stages = []
+        c = enc_filters[-1]
+        for k, f in enumerate(filters):
+            stages.append(UpConv(c, f, dtype=dtype))
+            c = f + enc_filters[-2 - k]
+        self.stages = nn.ModuleList(stages)
+
+    def forward(self, encs: list[torch.Tensor]) -> list[torch.Tensor]:
+        f = encs[-1]
+        decs = []
+        for k, stage in enumerate(self.stages):
+            f = stage(f)
+            f = cat_channels([f, encs[-2 - k].to(f.dtype)])
+            decs.append(f)
+        return decs
+
+
+class Flower(nn.Module):
+    """FlowBlock at the coarsest scale, then num_levels x (2x upsample
+    (x2.0) + UpFlowBlock), then a final 2x upsample (x2.0). Outputs
+    num_levels + 2 flows, coarse to fine.
+
+    cv_impl: one string for every level ('auto' | 'plain' | 'fused'),
+    'fast' (fused at the finest UpFlowBlock only, 'auto' elsewhere), or a
+    sequence of num_levels + 1 strings, coarsest first.
+    """
+
+    def __init__(self, enc_ch: int = ENCODER_FILTERS[-1],
+                 dec_ch: Sequence[int] = (256, 128, 64, 32),
+                 dtype: torch.dtype = torch.float32,
+                 cv_impl: CvImpl = "auto", head_scale: str = "diag",
+                 residual: bool = False):
+        super().__init__()
+        self.num_levels = len(dec_ch)
+        self.cv_impl = cv_impl if isinstance(cv_impl, str) else tuple(cv_impl)
+        self.flow_0 = FlowBlock(enc_ch, dtype=dtype,
+                                cv_impl=self.impl_at(0),
+                                head_scale=head_scale)
+        self.upflows = nn.ModuleList(
+            UpFlowBlock(c, dtype=dtype, cv_impl=self.impl_at(i + 1),
+                        head_scale=head_scale, residual=residual)
+            for i, c in enumerate(dec_ch))
+
+    def impl_at(self, i: int) -> str:
+        if isinstance(self.cv_impl, tuple):
+            if len(self.cv_impl) != self.num_levels + 1:
+                raise ValueError(f"cv_impl needs {self.num_levels + 1} "
+                                 f"entries, got {self.cv_impl}")
+            return self.cv_impl[i]
+        if self.cv_impl == "fast":
+            return "fused" if i == self.num_levels else "auto"
+        return self.cv_impl
+
+    def forward(self, enc_prv, enc_nxt, decs_prv, decs_nxt):
+        flo = self.flow_0(enc_prv, enc_nxt)
+        flos = [flo]
+        for i, upflow in enumerate(self.upflows):
+            flo_u = upsample2x_bilinear_nchw(flo, scale=2.0)
+            flo = upflow(decs_prv[i], decs_nxt[i], flo_u)
+            flos.append(flo)
+        flos.append(upsample2x_bilinear_nchw(flo, scale=2.0))
+        return flos
+
+
+class PWCFlowNet(nn.Module):
+    """The optical-flow model.
+
+    forward(inputs (B, H, W, 6)) -> the final (B, H, W, 2) float32 flow,
+    or with multiscale=True the list of 6 flows at 1/32..1/1 (the JAX
+    model's train=True output). Train/eval mode is the module's: in
+    ``.train()`` BatchNorm uses and updates batch statistics.
+
+    fuse_batch=True runs the siamese encoder/decoder once on the 2B stack
+    [prv; nxt] (exact: the pyramid has no normalizer).
+    """
+
+    def __init__(self, dtype: torch.dtype = torch.float32,
+                 cv_impl: CvImpl = "auto", head_scale: str = "diag",
+                 residual: bool = False, stem_stages: int = 0,
+                 fuse_batch: bool = True):
+        super().__init__()
+        self.fuse_batch = fuse_batch
+        self.encoder = Encoder(dtype=dtype, stem_stages=stem_stages)
+        self.decoder = Decoder(dtype=dtype)
+        self.flower = Flower(dtype=dtype, cv_impl=cv_impl,
+                             head_scale=head_scale, residual=residual)
+
+    def forward(self, inputs: torch.Tensor, multiscale: bool = False):
+        x = nchw(inputs)
+        img_prv = x[:, :3].contiguous(memory_format=CHANNELS_LAST)
+        img_nxt = x[:, 3:].contiguous(memory_format=CHANNELS_LAST)
+        if self.fuse_batch:
+            b = img_prv.shape[0]
+            encs = self.encoder(torch.cat([img_prv, img_nxt], dim=0))
+            decs = self.decoder(encs)
+            encs_prv = [e[:b] for e in encs]
+            encs_nxt = [e[b:] for e in encs]
+            decs_prv = [d[:b] for d in decs]
+            decs_nxt = [d[b:] for d in decs]
+        else:
+            encs_prv = self.encoder(img_prv)
+            encs_nxt = self.encoder(img_nxt)
+            decs_prv = self.decoder(encs_prv)
+            decs_nxt = self.decoder(encs_nxt)
+        flos = self.flower(encs_prv[-1], encs_nxt[-1], decs_prv, decs_nxt)
+        flos = [nhwc(f.float()).contiguous() for f in flos]
+        return flos if multiscale else flos[-1]
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int,
+                   gen: torch.Generator) -> None:
+    """Flax lecun_normal: truncated normal in [-2, 2] std-units, scaled to
+    variance 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                              generator=gen)
+
+
+def init_weights(model: PWCFlowNet, seed: int, head_scale: str) -> None:
+    """The init schemes of the JAX build_flow_net, from a torch.Generator:
+    lecun-normal kernels, zero biases, BatchNorm scale 1 / bias 0 /
+    mean 0 / var 1, and the of_flow kernel zero under 'diag' or
+    normal(0.01) under 'unit'."""
+    gen = torch.Generator().manual_seed(seed)
+    for name, m in model.named_modules():
+        if isinstance(m, QConv):
+            o, i, kh, kw = m.weight.shape
+            if name.endswith("of_flow"):
+                with torch.no_grad():
+                    if head_scale == "unit":
+                        m.weight.normal_(0.0, 1e-2, generator=gen)
+                    else:
+                        m.weight.zero_()
+            else:
+                _lecun_normal_(m.weight, i * kh * kw, gen)
+        elif isinstance(m, QConvTranspose):
+            i, o, kh, kw = m.weight.shape
+            _lecun_normal_(m.weight, i * kh * kw, gen)
+        elif isinstance(m, BatchNorm):
+            with torch.no_grad():
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+
+
+def build_flow_net(seed: int = 0, device: Union[str, torch.device] = "cpu",
+                   dtype: torch.dtype = torch.float32,
+                   cv_impl: CvImpl = "auto", stem_stages: int = 0,
+                   head_scale: str = "diag", residual: bool = False,
+                   fuse_batch: bool = True) -> PWCFlowNet:
+    """Construct a PWCFlowNet on ``device`` with float32 parameters drawn
+    from ``seed``, computing in ``dtype``; returned in eval mode."""
+    model = PWCFlowNet(dtype=dtype, cv_impl=cv_impl, head_scale=head_scale,
+                       residual=residual, stem_stages=stem_stages,
+                       fuse_batch=fuse_batch)
+    init_weights(model, seed, head_scale)
+    return model.to(device).eval()

@@ -1,0 +1,23 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a) and their wrappers.
+
+Each wrapper module holds the kernel's plain PyTorch version, which CPU
+tensors take, and a ``launches`` count on the wrapper. Nothing here
+builds or imports a compiler at import time: ``_build.library()``
+compiles ``qpwcnet_torch/csrc/*.cu`` at the first launch.
+"""
+
+from qpwcnet_torch.ops.cuda.cost_volume_kernel import cost_volume_cuda
+from qpwcnet_torch.ops.cuda.stem_kernel import downconv_stage_cuda
+from qpwcnet_torch.ops.cuda.warp_cv_kernel import warp_cost_volume_cuda
+
+KERNEL_WRAPPERS = (cost_volume_cuda, downconv_stage_cuda,
+                   warp_cost_volume_cuda)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}

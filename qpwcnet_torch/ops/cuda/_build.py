@@ -1,0 +1,142 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``qpwcnet_torch/csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``
+into ONE shared library with a plain C interface, at first use, and
+loaded with ``ctypes``. The library lives in ``build/qpwcnet_torch/``
+beside the package (listed in .gitignore), under a name keyed by the
+sources' content, so an edited source rebuilds and an unchanged one is
+reused by later processes.
+
+Each C entry point takes its pointers and the CUDA stream as
+``void*``, launches on that stream, allocates nothing, and returns
+``cudaGetLastError()``; :func:`check` raises when that is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR.parent / "build" / "qpwcnet_torch"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures of the entry points (restype is int: a cudaError_t).
+SIGNATURES = {
+    # prv, nxt, out, B, H, W, C, dtype, stream
+    "qpw_cost_volume": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # prv, nxt, flow, out, B, H, W, C, warp_window, dtype, stream
+    "qpw_warp_cost_volume": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    # x, w1, b1, w2, b2, w3, b3, out, B, H, W, Cin, Cout, dtype, stream
+    "qpw_downconv_stage": [_P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    cands = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                          "bin", "nvcc"), shutil.which("nvcc")]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(Path(__file__).read_bytes())
+    for p in sorted(CSRC_DIR.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels unless the library for these sources exists.
+
+    Returns the library's path. Writes to a temporary name and renames,
+    so a concurrent or interrupted build never leaves a partial file.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib = BUILD_DIR / f"libqpwcnet_kernels_{_digest()}.so"
+    if lib.exists():
+        return lib
+    tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
+    # -fmad=false: no implicit a*b+c contraction, so elementwise math
+    # rounds as eager PyTorch does; the sums use fmaf explicitly.
+    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false",
+           "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-I", str(CSRC_DIR),
+           "-o", str(tmp), *map(str, _sources())]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
+            f"{res.stdout}\n{res.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a kernel entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+def dtype_code(dtype) -> int:
+    """The C entry points' dtype argument: 0 float32, 1 bfloat16."""
+    import torch
+
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    if dtype not in codes:
+        raise TypeError(f"kernels take float32 or bfloat16, not {dtype}")
+    return codes[dtype]
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require(t, name: str, shape=None, dtype=None, device=None) -> None:
+    """Wrapper-side validation of a tensor handed to a kernel."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous (call .contiguous())")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if dtype is not None and t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")

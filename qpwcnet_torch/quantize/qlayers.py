@@ -1,0 +1,95 @@
+"""Conv modules (port of the float path of qpwcnet_tpu/quantize/qlayers.py).
+
+Tensors inside the model are logical NCHW; parameters are float32 and are
+cast to the module's compute dtype per call, as the JAX modules do.
+Weights are stored in PyTorch's layouts: OIHW for convs, (C, 1, kh, kw)
+for depthwise convs and (I, O, kh, kw) for transpose convs
+(models/from_flax.py maps the Flax HWIO kernels).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def same_pads(size: int, k: int, s: int) -> tuple[int, int]:
+    """XLA 'SAME' padding (before, after) of one spatial dim: the output
+    is ceil(size / s), and an odd total pad puts the extra pixel AFTER —
+    so a 3x3/s2 conv on an even size pads (0, 1), not (1, 1)."""
+    out = -(-size // s)
+    total = max((out - 1) * s + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d_same(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
+                groups: int = 1) -> torch.Tensor:
+    """NCHW conv with XLA 'SAME' padding; weight OIHW in x's dtype."""
+    kh, kw = weight.shape[-2:]
+    pt, pb = same_pads(x.shape[2], kh, stride)
+    pl, pr = same_pads(x.shape[3], kw, stride)
+    if pt == pb and pl == pr:
+        return F.conv2d(x, weight, stride=stride, padding=(pt, pl),
+                        groups=groups)
+    return F.conv2d(F.pad(x, (pl, pr, pt, pb)), weight, stride=stride,
+                    groups=groups)
+
+
+class QConv(nn.Module):
+    """Conv2D with 'SAME' padding, optional bias and activation.
+
+    ``groups == in_ch == out_ch`` is the depthwise case (weight
+    (C, 1, kh, kw)).
+    """
+
+    def __init__(self, in_ch: int, features: int, kernel_size: int = 3,
+                 stride: int = 1, groups: int = 1, use_bias: bool = True,
+                 dtype: torch.dtype = torch.float32,
+                 act: Optional[Callable] = None):
+        super().__init__()
+        self.stride = stride
+        self.groups = groups
+        self.dtype = dtype
+        self.act = act
+        self.weight = nn.Parameter(torch.empty(
+            features, in_ch // groups, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = conv2d_same(x.to(self.dtype), self.weight.to(self.dtype),
+                        self.stride, self.groups)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)[:, None, None]
+        if self.act is not None:
+            y = self.act(y)
+        return y
+
+
+class QConvTranspose(nn.Module):
+    """ConvTranspose2D 4x4/s2 'SAME' (output 2H x 2W).
+
+    ``lax.conv_transpose(x, k, (2, 2), 'SAME')`` with an HWIO kernel k is
+    ``conv_transpose2d(x, k.flip(0, 1).permute(2, 3, 0, 1), stride=2,
+    padding=1)``; the stored weight is that flipped (I, O, 4, 4) tensor.
+    """
+
+    def __init__(self, in_ch: int, features: int, use_bias: bool = True,
+                 dtype: torch.dtype = torch.float32,
+                 act: Optional[Callable] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.act = act
+        self.weight = nn.Parameter(torch.empty(in_ch, features, 4, 4))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv_transpose2d(x.to(self.dtype), self.weight.to(self.dtype),
+                               stride=2, padding=1)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)[:, None, None]
+        if self.act is not None:
+            y = self.act(y)
+        return y

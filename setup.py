@@ -8,7 +8,11 @@ setup(
         "Pallas cost-volume + warp kernels, frame-interpolation "
         "pretraining, flow-aware augmentation, AGC training, int8 QAT"
     ),
-    packages=find_packages(include=["qpwcnet_tpu", "qpwcnet_tpu.*"]),
+    packages=find_packages(include=["qpwcnet_tpu", "qpwcnet_tpu.*",
+                                    "qpwcnet_torch", "qpwcnet_torch.*"]),
+    # The PyTorch port builds its CUDA kernels from these sources with
+    # nvcc at first use (qpwcnet_torch/ops/cuda/_build.py).
+    package_data={"qpwcnet_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",
@@ -22,5 +26,6 @@ setup(
     extras_require={
         "viz": ["matplotlib", "tensorboardX"],
         "test": ["pytest"],
+        "torch": ["torch"],
     },
 )

@@ -1,0 +1,153 @@
+"""The plain PyTorch versions of the port's CUDA kernels against the JAX
+package, and the CPU dispatch rule of the kernel wrappers.
+
+The CUDA kernels themselves run only on the card (tests/test_torch_cuda.py
+and chip_smoke.py compare each with its plain version there); here each
+plain version is held against the JAX function its kernel replaces:
+
+  * K2 ``downconv_stage_plain`` vs ``downconv_stage_pallas(interpret=True)``
+    and ``DownConv.apply``;
+  * K3 ``warp_cost_volume_plain`` vs ``cost_volume_xla(prv,
+    backward_warp(nxt, clip(flow, ±ww)))``, the identity of
+    ``warp_cv_kernel.py:27-31``.
+
+(K1's plain version is ``cost_volume_plain``, held against
+``cost_volume_xla`` in tests/test_torch_ops.py.)
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from qpwcnet_tpu.models.blocks import DownConv
+from qpwcnet_tpu.ops.cost_volume import cost_volume_xla
+from qpwcnet_tpu.ops.pallas.stem_kernel import downconv_stage_pallas
+from qpwcnet_tpu.ops.warp import backward_warp
+from qpwcnet_torch.models import build_flow_net
+from qpwcnet_torch.ops import cuda as kernels
+from qpwcnet_torch.ops.cost_volume import cost_volume_plain
+from qpwcnet_torch.ops.cuda.stem_kernel import (
+    downconv_stage_cuda,
+    downconv_stage_plain,
+)
+from qpwcnet_torch.ops.cuda.cost_volume_kernel import cost_volume_cuda
+from qpwcnet_torch.ops.cuda.warp_cv_kernel import (
+    FUSED_WARP_WINDOW,
+    warp_cost_volume_cuda,
+    warp_cost_volume_plain,
+)
+
+BF16_ROUNDOFF = 2.0 ** -8  # half a bf16 ulp, relative
+
+
+def _t(x, dtype=torch.float32):
+    return torch.from_numpy(np.array(x, np.float32)).to(dtype)
+
+
+def _max_err(got, want):
+    return float(np.max(np.abs(got.float().numpy()
+                               - np.asarray(want, np.float32))))
+
+
+def _stage(h, w, cin, cout, seed):
+    """A Flax DownConv with random (non-zero) biases, its input, and the
+    same parameters as the port's [(OIHW weight, bias)] list."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(2, h, w, cin).astype(np.float32)
+    m = DownConv(cout, use_normalizer=False, dtype=jnp.float32)
+    v = jax.device_get(m.init(jax.random.key(seed), jnp.asarray(x)))
+    for name in ("conv_a", "conv_aa", "conv_b"):
+        v["params"][name]["bias"] = (
+            0.1 * rng.randn(cout)).astype(np.float32)
+    params = [(_t(v["params"][n]["kernel"].transpose(3, 2, 0, 1)),
+               _t(v["params"][n]["bias"]))
+              for n in ("conv_a", "conv_aa", "conv_b")]
+    return m, v, x, params
+
+
+@pytest.mark.parametrize("h,w,cin,cout", [(16, 24, 3, 16), (12, 20, 16, 32)])
+def test_downconv_stage_plain_matches_jax(h, w, cin, cout):
+    m, v, x, params = _stage(h, w, cin, cout, seed=h + cin)
+    got = downconv_stage_plain(_t(x), params, torch.float32)
+    ref_pallas = downconv_stage_pallas(jnp.asarray(x), v["params"],
+                                       dtype=jnp.float32, tile_rows=8,
+                                       interpret=True)
+    ref_module = m.apply(v, jnp.asarray(x))
+    assert got.shape == (2, h // 2, w // 2, cout)
+    # three f32 convs summed in another order: 1e-5 of the magnitude
+    tol = 1e-5 * max(1.0, float(np.max(np.abs(ref_module))))
+    assert _max_err(got, ref_pallas) <= tol
+    assert _max_err(got, ref_module) <= tol
+
+
+def test_downconv_stage_plain_matches_jax_bf16():
+    m, v, x, params = _stage(16, 24, 3, 16, seed=5)
+    got = downconv_stage_plain(_t(x), params, torch.bfloat16)
+    mb = DownConv(16, use_normalizer=False, dtype=jnp.bfloat16)
+    want = mb.apply(v, jnp.asarray(x))
+    assert got.dtype == torch.bfloat16
+    # bf16 convs, bias adds and Mish at the same rounding points; a
+    # rounding flip in an early conv propagates through the later two
+    tol = 4 * BF16_ROUNDOFF * max(1.0, float(np.max(np.abs(want))))
+    assert _max_err(got, want) <= tol
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_warp_cost_volume_plain_matches_jax_composition(dtype):
+    """Flows up to ±7 px exceed the ±4 window, so the clamp matters."""
+    rng = np.random.RandomState(7)
+    prv = rng.standard_normal((2, 10, 14, 8))
+    nxt = rng.standard_normal((2, 10, 14, 8))
+    flow = rng.uniform(-7, 7, (2, 10, 14, 2)).astype(np.float32)
+    assert np.mean(np.abs(flow) > FUSED_WARP_WINDOW) > 0.2
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    got = warp_cost_volume_plain(_t(prv, tdt), _t(nxt, tdt), _t(flow))
+    ww = float(FUSED_WARP_WINDOW)
+    want = cost_volume_xla(
+        jnp.asarray(prv, jdt),
+        backward_warp(jnp.asarray(nxt, jdt),
+                      jnp.clip(jnp.asarray(flow), -ww, ww)))
+    assert got.shape == (2, 10, 14, 81) and got.dtype == tdt
+    # warp + f32 channel sums; bf16: the warp's per-op rounding then the
+    # output rounding
+    rel = 1e-5 if dtype == "float32" else 2 * BF16_ROUNDOFF
+    assert _max_err(got, want) <= rel * max(1.0, float(np.max(np.abs(want))))
+    # and the clamp is not vacuous: the unclamped composition differs
+    free = cost_volume_xla(jnp.asarray(prv, jdt),
+                           backward_warp(jnp.asarray(nxt, jdt),
+                                         jnp.asarray(flow)))
+    assert _max_err(got, free) > 0.05
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    """A CPU tensor takes the plain version and counts no launch."""
+    kernels.reset_launch_counts()
+    rng = np.random.RandomState(3)
+    prv = _t(rng.standard_normal((1, 8, 12, 16)))
+    nxt = _t(rng.standard_normal((1, 8, 12, 16)))
+    flow = _t(rng.uniform(-6, 6, (1, 8, 12, 2)))
+    assert torch.equal(cost_volume_cuda(prv, nxt),
+                       cost_volume_plain(prv, nxt))
+    assert torch.equal(warp_cost_volume_cuda(prv, nxt, flow),
+                       warp_cost_volume_plain(prv, nxt, flow))
+    _, _, x, params = _stage(8, 12, 3, 16, seed=1)
+    assert torch.equal(downconv_stage_cuda(_t(x), params, torch.float32),
+                       downconv_stage_plain(_t(x), params, torch.float32))
+    model = build_flow_net(0, "cpu", cv_impl="fast", stem_stages=2)
+    with torch.no_grad():
+        model(_t(rng.uniform(-0.5, 0.5, (1, 64, 64, 6))))
+    assert kernels.launch_counts() == {
+        "cost_volume_cuda": 0, "downconv_stage_cuda": 0,
+        "warp_cost_volume_cuda": 0}
+
+
+def test_stem_rejects_odd_sizes():
+    _, _, x, params = _stage(8, 12, 3, 16, seed=2)
+    with pytest.raises(ValueError):
+        downconv_stage_cuda(_t(x)[:, :7], params, torch.float32)
+    # stem_stages=2 needs H, W divisible by 4: stage 1 sees 3x5 here
+    model = build_flow_net(0, "cpu", stem_stages=2)
+    with pytest.raises(ValueError), torch.no_grad():
+        model(torch.zeros(1, 6, 10, 6))

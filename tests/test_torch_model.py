@@ -1,0 +1,204 @@
+"""The PyTorch port's PWCFlowNet against the JAX model on CPU, with the
+same Flax variables loaded into both.
+
+Fresh weights make the check vacuous: the 'diag' flow heads start at
+zero, so every flow is 0 and the warp is the identity. So every test here
+first draws the of_flow kernels, the BatchNorm scale/bias/statistics and
+the conv biases from a numpy seed, scaled so that the flows are a few
+pixels with some beyond ±4 at the finest level, and loads the same tree
+into both models.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from qpwcnet_torch.models import build_flow_net, load_flax_variables
+from qpwcnet_torch.models.pwcnet import Flower
+from tests.test_models import _expected_flow_net_params
+
+HW = (64, 128)
+LEVELS = ["flow_0"] + [f"upflow_{i}" for i in range(4)]
+
+
+def _seeded(variables, head_scale, seed=0, k=1.5, hw=HW):
+    """A numpy copy of a Flax flow-net tree with non-zero flow heads and
+    BatchNorm state. of_flow ~ N(0, (k / s)^2) with s = sqrt(h² + w²) of
+    the level under 'diag' (1 under 'unit'). k = 1.5 gives flows of ~2 px
+    with running statistics; batch statistics normalize the small
+    head features up, so train mode takes a smaller k."""
+    v = jax.tree_util.tree_map(lambda a: np.array(a, np.float32),
+                               jax.device_get(variables))
+    rng = np.random.RandomState(seed)
+
+    def biases(tree):
+        for k, sub in tree.items():
+            if isinstance(sub, dict):
+                if "bias" in sub and "kernel" in sub:
+                    sub["bias"] = (0.05 * rng.standard_normal(
+                        sub["bias"].shape)).astype(np.float32)
+                biases(sub)
+
+    biases(v["params"])
+    for i, name in enumerate(LEVELS):
+        h, w = hw[0] >> (5 - i), hw[1] >> (5 - i)
+        s = float(h * h + w * w) ** 0.5 if head_scale == "diag" else 1.0
+        head = v["params"]["flower"][name]["flow"]
+        head["of_flow"]["kernel"] = rng.normal(
+            0, k / s, (3, 3, 16, 2)).astype(np.float32)
+        head["norm"]["scale"] = rng.uniform(0.5, 1.5, 16).astype(np.float32)
+        head["norm"]["bias"] = rng.normal(0, 0.1, 16).astype(np.float32)
+        st = v["batch_stats"]["flower"][name]["flow"]["norm"]
+        st["mean"] = rng.normal(0, 0.1, 16).astype(np.float32)
+        st["var"] = rng.uniform(0.5, 1.5, 16).astype(np.float32)
+    return v
+
+
+def _inputs(seed=0, hw=HW):
+    return np.random.RandomState(seed).uniform(
+        -0.5, 0.5, (1, *hw, 6)).astype(np.float32)
+
+
+def _port(v, head_scale, **kw):
+    model = build_flow_net(0, "cpu", head_scale=head_scale, **kw)
+    return load_flax_variables(model, v)
+
+
+def _err(a, b):
+    return float(np.max(np.abs(np.asarray(a, np.float32)
+                               - np.asarray(b, np.float32))))
+
+
+def test_param_count_matches_golden():
+    model = build_flow_net(0, "cpu")
+    n = sum(p.numel() for p in model.parameters())
+    assert n == _expected_flow_net_params()
+
+
+def test_load_flax_variables_maps_every_leaf(flow_setup):
+    _, variables = flow_setup
+    v = _seeded(variables, "diag")
+    model = _port(v, "diag")
+    leaves = jax.tree_util.tree_leaves(v)
+    assert len(leaves) == 133
+    assert sum(a.size for a in leaves) == 3_094_165
+    assert len(model.state_dict()) == len(leaves)
+    head = model.flower.upflows[3].flow
+    np.testing.assert_array_equal(
+        head.of_flow.weight.detach().numpy(),
+        v["params"]["flower"]["upflow_3"]["flow"]["of_flow"]["kernel"]
+        .transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(
+        head.norm.running_var.numpy(),
+        v["batch_stats"]["flower"]["upflow_3"]["flow"]["norm"]["var"])
+    bad = {"params": {**v["params"], "extra": {"kernel": np.zeros(1)}},
+           "batch_stats": v["batch_stats"]}
+    with pytest.raises(ValueError):
+        load_flax_variables(build_flow_net(0, "cpu"), bad)
+    short = {"params": v["params"]}
+    with pytest.raises(ValueError):
+        load_flax_variables(build_flow_net(0, "cpu"), short)
+
+
+@pytest.mark.parametrize("head_scale", ["diag", "unit"])
+def test_multiscale_flows_match_jax_train_mode(flow_setup, head_scale):
+    """All 6 flows in train mode (BatchNorm on batch statistics on both
+    sides) and the updated running statistics (Keras momentum .99)."""
+    model_j, variables = flow_setup
+    v = _seeded(variables, head_scale, k=0.5)
+    x = _inputs(1)
+    outs_j, upd = model_j.clone(head_scale=head_scale).apply(
+        v, jnp.asarray(x), train=True, mutable=["batch_stats"])
+    model_t = _port(v, head_scale).train()
+    with torch.no_grad():
+        outs_t = model_t(torch.from_numpy(x), multiscale=True)
+    assert len(outs_t) == len(outs_j) == 6
+    fin = np.asarray(outs_j[-2])
+    assert 0.5 < np.mean(np.abs(fin)) < 5.0, np.mean(np.abs(fin))
+    assert np.mean(np.abs(fin) > 4.0) > 0.01
+    for a, b in zip(outs_t, outs_j):
+        assert a.shape == b.shape
+        # five levels of f32 convs in another summation order feed the
+        # warp coordinates: 1e-4 of the flow magnitude
+        assert _err(a, b) <= 1e-4 * max(1.0, float(np.max(np.abs(b)))), \
+            _err(a, b)
+    for i, name in enumerate(LEVELS):
+        st = upd["batch_stats"]["flower"][name]["flow"]["norm"]
+        bn = (model_t.flower.flow_0 if i == 0
+              else model_t.flower.upflows[i - 1]).flow.norm
+        # batch statistics of f32 features: rounding-level agreement
+        assert _err(bn.running_mean, st["mean"]) <= 1e-5
+        assert _err(bn.running_var, st["var"]) <= 1e-5
+
+
+@pytest.mark.parametrize("head_scale", ["diag", "unit"])
+def test_final_flow_matches_jax_eval_mode(flow_setup, head_scale):
+    model_j, variables = flow_setup
+    v = _seeded(variables, head_scale, seed=1)
+    x = _inputs(2)
+    want = model_j.clone(head_scale=head_scale).apply(
+        v, jnp.asarray(x), train=False)
+    with torch.no_grad():
+        got = _port(v, head_scale)(torch.from_numpy(x))
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert np.mean(np.abs(np.asarray(want))) > 0.5
+    assert _err(got, want) <= 1e-4 * max(1.0, float(np.max(np.abs(want))))
+
+
+def test_final_flow_matches_jax_bf16(flow_setup):
+    """bf16 compute, f32 params/BatchNorm/flow conv. Both sides round at
+    the same points but their convs sum in other orders, and a bf16 ulp
+    flip early on moves the warp coordinates of later levels: the
+    tolerance is 5% of the flow magnitude, and the mean error must be
+    well below it."""
+    model_j, variables = flow_setup
+    v = _seeded(variables, "diag", seed=2)
+    x = _inputs(3)
+    want = np.asarray(model_j.clone(dtype=jnp.bfloat16).apply(
+        v, jnp.asarray(x), train=False))
+    with torch.no_grad():
+        got = _port(v, "diag", dtype=torch.bfloat16)(
+            torch.from_numpy(x)).numpy()
+    scale = max(1.0, float(np.max(np.abs(want))))
+    assert _err(got, want) <= 0.05 * scale, (_err(got, want), scale)
+    assert float(np.mean(np.abs(got - want))) <= 0.005 * scale
+
+
+def test_fuse_batch_is_exact():
+    torch.manual_seed(0)
+    x = torch.rand(2, 64, 64, 6) - 0.5
+    a = build_flow_net(0, "cpu", head_scale="unit")
+    b = build_flow_net(0, "cpu", head_scale="unit", fuse_batch=False)
+    with torch.no_grad():
+        assert float((a(x) - b(x)).abs().max()) <= 1e-5
+
+
+def test_fast_preset_fuses_only_the_finest_level():
+    fl = Flower(cv_impl="fast")
+    assert [fl.impl_at(i) for i in range(5)] == ["auto"] * 4 + ["fused"]
+    model = build_flow_net(0, "cpu", cv_impl="fast")
+    assert model.flower.flow_0.cv_impl == "auto"
+    assert [u.cv_impl for u in model.flower.upflows] == \
+        ["auto", "auto", "auto", "fused"]
+
+
+def test_port_imports_no_jax():
+    """The port package, its models and the infer app import neither jax
+    nor the JAX package."""
+    code = ("import sys, qpwcnet_torch, qpwcnet_torch.models, "
+            "qpwcnet_torch.apps.infer, qpwcnet_torch.ops.cuda; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'qpwcnet_tpu')]; "
+            "assert not bad, bad")
+    root = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "PYTHONPATH": str(root)}
+    res = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
