@@ -18,7 +18,7 @@ from qpwcnet_torch.ops.activations import mish
 from qpwcnet_torch.ops.cost_volume import cost_volume
 from qpwcnet_torch.ops.cuda.warp_cv_kernel import (
     FUSED_WARP_WINDOW,
-    warp_cost_volume_cuda,
+    warp_cost_volume_trainable,
 )
 from qpwcnet_torch.ops.warp import backward_warp
 from qpwcnet_torch.quantize.qlayers import QConv, QConvTranspose
@@ -179,8 +179,8 @@ class UpFlowBlock(nn.Module):
                 flo: torch.Tensor) -> torch.Tensor:
         flo32 = nhwc(flo.float()).contiguous()
         if self.cv_impl == "fused":
-            cost = warp_cost_volume_cuda(nhwc(prv), nhwc(nxt), flo32,
-                                         warp_window=FUSED_WARP_WINDOW)
+            cost = warp_cost_volume_trainable(nhwc(prv), nhwc(nxt), flo32,
+                                              warp_window=FUSED_WARP_WINDOW)
         else:
             nxt_w = backward_warp(nhwc(nxt), flo32)
             cost = cost_volume(nhwc(prv), nxt_w, impl=self.cv_impl)

@@ -87,3 +87,50 @@ def load_flax_variables(model: nn.Module,
         raise ValueError(f"model tensors not set by the Flax tree: "
                          f"{sorted(missing)}")
     return model
+
+
+def _flax_path(model: nn.Module, key: str) -> tuple[str, ...]:
+    """A parameter's state_dict key -> its Flax path (inverse of
+    :func:`torch_key`)."""
+    *mods, leaf = key.split(".")
+    path = []
+    for p in mods:
+        if p.isdigit() and path and path[-1] in ("stages", "upflows",
+                                                 "of_feats"):
+            path[-1] = f"{path[-1][:-1]}_{p}"
+        else:
+            path.append(p)
+    is_norm = "running_mean" in dict(
+        model.get_submodule(".".join(mods)).named_buffers(recurse=False))
+    names = {"weight": "scale" if is_norm else "kernel", "bias": "bias"}
+    return tuple(path) + (names[leaf],)
+
+
+def _unconvert(path: tuple[str, ...], value: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`_convert`."""
+    if path[-1] != "kernel":
+        return value
+    if "conv_up" in path:
+        return np.flip(value.transpose(2, 3, 0, 1), (0, 1))
+    return value.transpose(2, 3, 1, 0)
+
+
+def to_flax_tree(model: nn.Module, what: str = "params") -> dict:
+    """The model's parameters (``what='params'``) or their ``.grad``
+    (``what='grads'``) as a Flax-shaped nested dict of float32 numpy
+    arrays, in the Flax layouts: the inverse of
+    :func:`load_flax_variables` for the 'params' collection."""
+    if what not in ("params", "grads"):
+        raise ValueError(f"what must be 'params' or 'grads', got {what!r}")
+    tree: dict = {}
+    for key, p in model.named_parameters():
+        t = p if what == "params" else p.grad
+        if t is None:
+            raise ValueError(f"{key} has no gradient")
+        path = _flax_path(model, key)
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = np.ascontiguousarray(
+            _unconvert(path, t.detach().float().cpu().numpy()))
+    return tree

@@ -26,7 +26,7 @@ from qpwcnet_torch.models.blocks import (
 )
 from qpwcnet_torch.ops.cuda.stem_kernel import (
     STEM_CHANNELS,
-    downconv_stage_cuda,
+    downconv_stage_trainable,
 )
 from qpwcnet_torch.ops.resize import upsample2x_bilinear_nchw
 from qpwcnet_torch.quantize.qlayers import QConv, QConvTranspose
@@ -42,7 +42,8 @@ class Encoder(nn.Module):
 
     The first ``stem_stages`` stages run as one fused CUDA kernel each
     (ops/cuda/stem_kernel.py), reading the same parameters as the
-    DownConv modules; on CPU tensors that is the unfused composition.
+    DownConv modules, with the unfused composition's gradients; on CPU
+    tensors the forward is the unfused composition too.
     """
 
     def __init__(self, filters: Sequence[int] = ENCODER_FILTERS,
@@ -65,8 +66,8 @@ class Encoder(nn.Module):
         f = img.to(self.dtype)
         for i, stage in enumerate(self.stages):
             if i < self.stem_stages:
-                f = nchw(downconv_stage_cuda(nhwc(f).contiguous(),
-                                             stage.params(), self.dtype))
+                f = nchw(downconv_stage_trainable(nhwc(f).contiguous(),
+                                                  stage.params(), self.dtype))
             else:
                 f = stage(f)
             feats.append(f)

@@ -34,6 +34,10 @@ _F = ctypes.c_float
 SIGNATURES = {
     # prv, nxt, out, B, H, W, C, dtype, stream
     "qpw_cost_volume": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # dacc, nxt, dprv, B, H, W, C, dtype, stream
+    "qpw_cost_volume_bwd_prv": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # dacc, prv, dnxt, B, H, W, C, dtype, stream
+    "qpw_cost_volume_bwd_nxt": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # prv, nxt, flow, out, B, H, W, C, warp_window, dtype, stream
     "qpw_warp_cost_volume": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     # x, w1, b1, w2, b2, w3, b3, out, B, H, W, Cin, Cout, dtype, stream

@@ -1,10 +1,14 @@
-"""K1: the cost-volume forward as a CUDA kernel (``csrc/cost_volume.cu``,
-``csrc/correlate.cuh``).
+"""K1: the cost-volume forward, and K4a / K4b: its backward, as CUDA
+kernels (``csrc/cost_volume.cu``, ``csrc/correlate.cuh``,
+``csrc/cost_volume_bwd.cu``).
 
 Replaces: ``qpwcnet_tpu/ops/pallas/cost_volume_kernel.py:_cv_kernel``
-(via ``_cost_volume_pallas_impl``).
+(via ``_cost_volume_pallas_impl``), ``_cv_bwd_prv_kernel`` (via
+``_cv_bwd_prv_impl``) and ``_cv_bwd_nxt_kernel`` (via
+``_cv_bwd_nxt_impl``). ``ops/cost_volume.py:CostVolumeFunction`` joins
+them into the trainable op.
 
-What bounds it on the H100: the plain version reads the padded nxt map
+What bounds K1 on the H100: the plain version reads the padded nxt map
 once per displacement (81 times) and writes 81 float32 planes before the
 stack; the work itself is 81·C multiply-adds per pixel. The kernel reads
 prv and nxt once per tile (the 9-row, 8-column halo re-read hits L2) and
@@ -12,16 +16,31 @@ writes the 81 outputs once, so it is bounded by shared-memory loads in
 the correlation loop (81 loads per 81 FMAs per channel), not by device
 memory. Tensor cores are not used: the correlation is a banded product,
 and making it a dense one is later work.
+
+K4a and K4b have the same bound and the same design with the roles
+swapped: each thread holds the 81 dacc coefficients of its output pixel
+in registers and correlates them against a shared-memory window of the
+C-channel map, one channel chunk at a time; the plain versions make 81
+float32 passes over (B, H, W, C) maps. K4b is the scatter of dacc·prv
+onto the displaced pixels written as a gather (each output pixel reads
+its 81 source pixels), so it needs no atomics and sums in a fixed order.
+Products are float32, exact for bf16 inputs (the TPU kernel rounds each
+product to the input dtype before its float32 sum).
 """
 
 from __future__ import annotations
 
 import torch
 
-from qpwcnet_torch.ops.cost_volume import cost_volume_plain
+from qpwcnet_torch.ops.cost_volume import (
+    cost_volume_bwd_nxt_plain,
+    cost_volume_bwd_prv_plain,
+    cost_volume_plain,
+)
 from qpwcnet_torch.ops.cuda import _build
 
-SEARCH_RANGE = 4  # the kernel's compiled search range (81 outputs)
+SEARCH_RANGE = 4  # the kernels' compiled search range (81 outputs)
+N_DISP = (2 * SEARCH_RANGE + 1) ** 2
 
 
 def cost_volume_cuda(prv: torch.Tensor, nxt: torch.Tensor,
@@ -39,8 +58,7 @@ def cost_volume_cuda(prv: torch.Tensor, nxt: torch.Tensor,
     b, h, w, c = prv.shape
     _build.require(prv, "prv")
     _build.require(nxt, "nxt", prv.shape, prv.dtype, prv.device)
-    d = 2 * search_range + 1
-    out = torch.empty((b, h, w, d * d), dtype=prv.dtype, device=prv.device)
+    out = torch.empty((b, h, w, N_DISP), dtype=prv.dtype, device=prv.device)
     lib = _build.library()
     with torch.cuda.device(prv.device):
         err = lib.qpw_cost_volume(
@@ -51,4 +69,53 @@ def cost_volume_cuda(prv: torch.Tensor, nxt: torch.Tensor,
     return out
 
 
+def _launch_bwd(entry: str, dacc: torch.Tensor, src: torch.Tensor,
+                src_name: str) -> torch.Tensor:
+    """Validate, allocate the (B, H, W, C) gradient and launch one of the
+    backward kernels."""
+    _build.require(src, src_name)
+    b, h, w, c = src.shape
+    _build.require(dacc, "dacc", (b, h, w, N_DISP), src.dtype, src.device)
+    out = torch.empty_like(src)
+    lib = _build.library()
+    with torch.cuda.device(src.device):
+        err = getattr(lib, entry)(
+            dacc.data_ptr(), src.data_ptr(), out.data_ptr(), b, h, w, c,
+            _build.dtype_code(src.dtype), _build.stream_ptr(src.device))
+    _build.check(err, entry)
+    return out
+
+
+def cost_volume_bwd_prv_cuda(dacc: torch.Tensor,
+                             nxt: torch.Tensor) -> torch.Tensor:
+    """K4a: dprv from dacc (B, H, W, 81) and nxt (B, H, W, C), both in one
+    dtype -> (B, H, W, C) in that dtype.
+
+    CPU tensors take :func:`cost_volume_bwd_prv_plain`; CUDA tensors
+    launch the kernel or raise.
+    """
+    if not dacc.is_cuda:
+        return cost_volume_bwd_prv_plain(dacc, nxt)
+    out = _launch_bwd("qpw_cost_volume_bwd_prv", dacc, nxt, "nxt")
+    cost_volume_bwd_prv_cuda.launches += 1
+    return out
+
+
+def cost_volume_bwd_nxt_cuda(dacc: torch.Tensor,
+                             prv: torch.Tensor) -> torch.Tensor:
+    """K4b: dnxt from dacc (B, H, W, 81) and prv (B, H, W, C), both in one
+    dtype -> (B, H, W, C) in that dtype.
+
+    CPU tensors take :func:`cost_volume_bwd_nxt_plain`; CUDA tensors
+    launch the kernel or raise.
+    """
+    if not dacc.is_cuda:
+        return cost_volume_bwd_nxt_plain(dacc, prv)
+    out = _launch_bwd("qpw_cost_volume_bwd_nxt", dacc, prv, "prv")
+    cost_volume_bwd_nxt_cuda.launches += 1
+    return out
+
+
 cost_volume_cuda.launches = 0
+cost_volume_bwd_prv_cuda.launches = 0
+cost_volume_bwd_nxt_cuda.launches = 0

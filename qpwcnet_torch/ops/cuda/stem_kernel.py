@@ -96,3 +96,43 @@ def downconv_stage_cuda(x: torch.Tensor, params: Params,
 
 
 downconv_stage_cuda.launches = 0
+
+
+class _TrainableStage(torch.autograd.Function):
+    """Forward: K2 (:func:`downconv_stage_cuda`). Backward: the gradients
+    of the unfused composition :func:`downconv_stage_plain`, recomputed
+    from the saved inputs (``stem_kernel.py:_trainable_stage``)."""
+
+    @staticmethod
+    def forward(ctx, x, dtype, *flat_params):
+        ctx.dtype = dtype
+        ctx.save_for_backward(x, *flat_params)
+        return downconv_stage_cuda(x, _pairs(flat_params), dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *flat = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(need) for t, need in
+                      zip([x, *flat], [ctx.needs_input_grad[0],
+                                       *ctx.needs_input_grad[2:]])]
+            y = downconv_stage_plain(leaves[0], _pairs(leaves[1:]),
+                                     ctx.dtype)
+            wanted = [t for t in leaves if t.requires_grad]
+            grads = iter(torch.autograd.grad(y, wanted, g))
+        return (next(grads) if leaves[0].requires_grad else None, None,
+                *(next(grads) if t.requires_grad else None
+                  for t in leaves[1:]))
+
+
+def _pairs(flat):
+    return [(flat[i], flat[i + 1]) for i in range(0, len(flat), 2)]
+
+
+def downconv_stage_trainable(x: torch.Tensor, params: Params,
+                             dtype: torch.dtype) -> torch.Tensor:
+    """:func:`downconv_stage_cuda` with gradients for x and the
+    parameters: the fused kernel forward, the unfused composition's
+    backward (recomputed), as ``downconv_stage_trainable`` of the JAX
+    package."""
+    return _TrainableStage.apply(x, dtype, *(t for p in params for t in p))

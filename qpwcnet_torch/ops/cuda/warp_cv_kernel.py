@@ -25,7 +25,7 @@ import torch
 from qpwcnet_torch.ops.cost_volume import cost_volume_plain
 from qpwcnet_torch.ops.cuda import _build
 from qpwcnet_torch.ops.cuda.cost_volume_kernel import SEARCH_RANGE
-from qpwcnet_torch.ops.warp import backward_warp
+from qpwcnet_torch.ops.warp import backward_warp, clip_balanced
 
 # Window of the model's cv_impl='fused' inference path
 # (models/blocks.py:UpFlowBlock), as in the JAX package.
@@ -38,7 +38,7 @@ def warp_cost_volume_plain(prv: torch.Tensor, nxt: torch.Tensor,
                            ) -> torch.Tensor:
     """The unfused composition the kernel computes."""
     ww = float(warp_window)
-    nxt_w = backward_warp(nxt, torch.clamp(flow.float(), -ww, ww))
+    nxt_w = backward_warp(nxt, clip_balanced(flow.float(), -ww, ww))
     return cost_volume_plain(prv, nxt_w, search_range=search_range)
 
 
@@ -78,3 +78,43 @@ def warp_cost_volume_cuda(prv: torch.Tensor, nxt: torch.Tensor,
 
 
 warp_cost_volume_cuda.launches = 0
+
+
+class _TrainableWarpCostVolume(torch.autograd.Function):
+    """Forward: K3 (:func:`warp_cost_volume_cuda`). Backward: recompute
+    ``CostVolumeFunction(prv, backward_warp(nxt, clip(flow, ±ww)))`` and
+    differentiate it (``warp_cv_kernel.py:_trainable_fused``): on CUDA
+    tensors that launches K1 once, then K4a and K4b."""
+
+    @staticmethod
+    def forward(ctx, prv, nxt, flow, warp_window):
+        ctx.warp_window = warp_window
+        ctx.save_for_backward(prv, nxt, flow)
+        return warp_cost_volume_cuda(prv, nxt, flow,
+                                     warp_window=warp_window)
+
+    @staticmethod
+    def backward(ctx, g):
+        from qpwcnet_torch.ops.cost_volume import CostVolumeFunction
+
+        ww = float(ctx.warp_window)
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(need) for t, need in
+                      zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+            prv, nxt, flow = leaves
+            cost = CostVolumeFunction.apply(
+                prv, backward_warp(nxt, clip_balanced(flow, -ww, ww)))
+            wanted = [t for t in leaves if t.requires_grad]
+            grads = iter(torch.autograd.grad(cost, wanted, g))
+        return (*(next(grads) if t.requires_grad else None for t in leaves),
+                None)
+
+
+def warp_cost_volume_trainable(prv: torch.Tensor, nxt: torch.Tensor,
+                               flow: torch.Tensor,
+                               warp_window: int = FUSED_WARP_WINDOW
+                               ) -> torch.Tensor:
+    """:func:`warp_cost_volume_cuda` with gradients for prv, nxt and flow:
+    the fused kernel forward, the unfused composition's backward
+    (recomputed), as ``warp_cost_volume_trainable`` of the JAX package."""
+    return _TrainableWarpCostVolume.apply(prv, nxt, flow, warp_window)

@@ -54,3 +54,13 @@ def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
         x = nhwc(F.pad(nchw(x), (0, pw, 0, ph), mode="replicate"))
         h, w = h + ph, w + pw
     return x.reshape(b, h // 2, 2, w // 2, 2, c).mean(dim=(2, 4))
+
+
+def block_mean_downsample(x: torch.Tensor, sh: int, sw: int) -> torch.Tensor:
+    """Exact block-mean pooling by integer factors (sh, sw):
+    (B, H, W, C) -> (B, H/sh, W/sw, C)."""
+    b, h, w, c = x.shape
+    if h % sh or w % sw:
+        raise ValueError(f"block_mean_downsample: {(h, w)} is not divisible "
+                         f"by {(sh, sw)}")
+    return x.reshape(b, h // sh, sh, w // sw, sw, c).mean(dim=(2, 4))

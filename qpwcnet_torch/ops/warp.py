@@ -10,12 +10,45 @@ Semantics are those of ``qpwcnet_tpu.ops.warp._warp_coords``: the corner
 origin (floor of the query) is clamped to ``[0, size-2]`` and the
 interpolation weights to ``[0, 1]``. Coordinates are float32; the
 interpolation runs in the image dtype (bf16 stays bf16).
+
+Gradients are those of the JAX op's custom VJP (``warp.py:199-232``):
+``d_img`` by four weighted scatter-adds over flattened HW, ``d_flow`` by
+differentiating the forward with respect to the flow, where the weight
+clip takes JAX's gradient at its bounds (:func:`clip_balanced`).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+class _ClipBalanced(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        ctx.save_for_backward(x)
+        ctx.bounds = (lo, hi)
+        return torch.clamp(x, lo, hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        lo, hi = ctx.bounds
+        inside = ((x > lo) & (x < hi)).to(g.dtype)
+        tie = ((x == lo) | (x == hi)).to(g.dtype)
+        return g * (inside + 0.5 * tie), None, None
+
+
+def clip_balanced(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``torch.clamp(x, lo, hi)`` with the gradient of ``jnp.clip``: 1
+    strictly inside (lo, hi), 0.5 at lo or hi, 0 outside.
+
+    ``jnp.clip`` is a maximum then a minimum, and JAX splits the gradient
+    of a tie between the two operands; ``torch.clamp`` passes all of it.
+    The warp's weights sit exactly on a bound wherever the sample
+    position is an integer, which is every pixel at zero flow.
+    """
+    return _ClipBalanced.apply(x, lo, hi)
 
 
 def warp_coords(flow: torch.Tensor, hp: int, wp: int):
@@ -31,34 +64,29 @@ def warp_coords(flow: torch.Tensor, hp: int, wp: int):
     qy = gy + flow[..., 1]
     x0 = torch.clamp(torch.floor(qx), 0.0, wp - 2.0)
     y0 = torch.clamp(torch.floor(qy), 0.0, hp - 2.0)
-    ax = torch.clamp(qx - x0, 0.0, 1.0)
-    ay = torch.clamp(qy - y0, 0.0, 1.0)
+    ax = clip_balanced(qx - x0, 0.0, 1.0)
+    ay = clip_balanced(qy - y0, 0.0, 1.0)
     return x0, y0, ax, ay
 
 
-def backward_warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """Backward bilinear warp.
+def _edge_pad(img: torch.Tensor) -> torch.Tensor:
+    """Degenerate 1-pixel dims: edge-pad so the 2x2 corner block fits;
+    border-clamped sampling is unchanged."""
+    _, hi, wi, _ = img.shape
+    if hi >= 2 and wi >= 2:
+        return img
+    return F.pad(img.permute(0, 3, 1, 2),
+                 (0, max(0, 2 - wi), 0, max(0, 2 - hi)),
+                 mode="replicate").permute(0, 2, 3, 1)
 
-    Args:
-      img: (B, H, W, C) source image/features.
-      flow: (B, H, W, 2) flow in (x, y) channel order.
 
-    Returns:
-      (B, H, W, C) in img's dtype: ``out[b,i,j] = img[b, i + flow_y,
-      j + flow_x]``, border-clamped and bilinearly interpolated.
-    """
-    b, hi, wi, c = img.shape
+def _warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    b, _, _, c = img.shape
     _, h, w, _ = flow.shape
-    flow = flow.float()
-    # Degenerate 1-pixel dims: edge-pad so the 2x2 corner block fits;
-    # border-clamped sampling is unchanged.
-    if hi < 2 or wi < 2:
-        img = F.pad(img.permute(0, 3, 1, 2),
-                    (0, max(0, 2 - wi), 0, max(0, 2 - hi)),
-                    mode="replicate").permute(0, 2, 3, 1)
-    hp, wp = max(hi, 2), max(wi, 2)
+    img = _edge_pad(img)
+    hp, wp = img.shape[1], img.shape[2]
 
-    x0, y0, ax, ay = warp_coords(flow, hp, wp)
+    x0, y0, ax, ay = warp_coords(flow.float(), hp, wp)
     lin = (y0.long() * wp + x0.long()).reshape(b, h * w)
     flat = img.reshape(b, hp * wp, c)
     bidx = torch.arange(b, device=img.device)[:, None]
@@ -73,3 +101,67 @@ def backward_warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     top = g00 + (g01 - g00) * ax
     bot = g10 + (g11 - g10) * ax
     return top + (bot - top) * ay
+
+
+def _warp_img_grad(img: torch.Tensor, flow: torch.Tensor,
+                   g: torch.Tensor) -> torch.Tensor:
+    """d_img of ``_warp_bwd_impl``: the four corner weights times g,
+    scatter-added over flattened HW in g's dtype, then the gradient of
+    the 1-pixel edge padding folded back onto the edge pixels."""
+    b, hi, wi, c = img.shape
+    _, h, w, _ = flow.shape
+    hp, wp = max(hi, 2), max(wi, 2)
+    x0, y0, ax, ay = warp_coords(flow.float(), hp, wp)
+    base = (torch.arange(b, device=g.device)[:, None] * (hp * wp)
+            + (y0.long() * wp + x0.long()).reshape(b, h * w))
+    gf = g.reshape(b, h * w, c)
+    ax = ax.reshape(b, h * w, 1).to(g.dtype)
+    ay = ay.reshape(b, h * w, 1).to(g.dtype)
+    acc = torch.zeros((b * hp * wp, c), dtype=g.dtype, device=g.device)
+    for dy in (0, 1):
+        wy = ay if dy else 1.0 - ay
+        for dx in (0, 1):
+            wgt = wy * (ax if dx else 1.0 - ax)
+            acc.index_add_(0, (base + dy * wp + dx).reshape(-1),
+                           (wgt * gf).reshape(-1, c))
+    d_img = acc.reshape(b, hp, wp, c)
+    if hp != hi:
+        d_img = torch.cat([d_img[:, :hi - 1],
+                           d_img[:, hi - 1:].sum(1, keepdim=True)], 1)
+    if wp != wi:
+        d_img = torch.cat([d_img[:, :, :wi - 1],
+                           d_img[:, :, wi - 1:].sum(2, keepdim=True)], 2)
+    return d_img.to(img.dtype)
+
+
+class _BackwardWarp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, img, flow):
+        ctx.save_for_backward(img, flow)
+        return _warp(img, flow)
+
+    @staticmethod
+    def backward(ctx, g):
+        img, flow = ctx.saved_tensors
+        d_img = d_flow = None
+        if ctx.needs_input_grad[1]:
+            with torch.enable_grad():
+                f = flow.detach().requires_grad_()
+                (d_flow,) = torch.autograd.grad(_warp(img.detach(), f), f, g)
+        if ctx.needs_input_grad[0]:
+            d_img = _warp_img_grad(img, flow, g)
+        return d_img, d_flow
+
+
+def backward_warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Backward bilinear warp.
+
+    Args:
+      img: (B, H, W, C) source image/features.
+      flow: (B, H, W, 2) flow in (x, y) channel order.
+
+    Returns:
+      (B, H, W, C) in img's dtype: ``out[b,i,j] = img[b, i + flow_y,
+      j + flow_x]``, border-clamped and bilinearly interpolated.
+    """
+    return _BackwardWarp.apply(img, flow)

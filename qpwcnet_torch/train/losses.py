@@ -1,0 +1,72 @@
+"""Training losses (port of the flow losses of
+qpwcnet_tpu/train/losses.py).
+
+All NHWC, flow in (x, y) channel order:
+
+  * :func:`multiscale_flow_loss` — FlowMseLossV2: block-mean downsample
+    of the GT flow by exact integer factors, magnitude scaled by
+    pred_h/true_h, then Huber(delta=0.1) on flow scaled by 2/(w+h), summed
+    over the multiscale predictions except the final bilinear-only one.
+  * :func:`epe_error` — the end-point-error metric.
+  * :func:`l2_regularization` — gamma * sum(kernel**2) over the DownConv
+    and UpConv kernels (the Keras l2 regularizers).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+
+from qpwcnet_torch.ops.resize import block_mean_downsample
+
+# Modules whose kernels carry the Keras l2 regularizer (DownConv, UpConv).
+L2_MODULES = ("conv_a", "conv_aa", "conv_b", "conv_up")
+
+
+def _huber(err: torch.Tensor, delta: float) -> torch.Tensor:
+    """Elementwise Huber loss: 0.5*e² below delta, delta*(|e| - 0.5*delta)
+    above."""
+    abs_e = torch.abs(err)
+    quad = 0.5 * torch.square(err)
+    lin = delta * (abs_e - 0.5 * delta)
+    return torch.where(abs_e <= delta, quad, lin)
+
+
+def flow_loss_v2(flo_true: torch.Tensor, flo_pred: torch.Tensor,
+                 delta: float = 0.1) -> torch.Tensor:
+    """FlowMseLossV2 for one scale."""
+    th, tw = flo_true.shape[1], flo_true.shape[2]
+    ph, pw = flo_pred.shape[1], flo_pred.shape[2]
+    flow_scale = ph / th
+    loss_scale = 2.0 / (pw + ph)
+    true_down = flow_scale * block_mean_downsample(flo_true, th // ph,
+                                                   tw // pw)
+    err = loss_scale * true_down - loss_scale * flo_pred
+    return torch.mean(_huber(err, delta))
+
+
+def multiscale_flow_loss(flo_true: torch.Tensor,
+                         flo_preds: Sequence[torch.Tensor],
+                         delta: float = 0.1) -> torch.Tensor:
+    """Sum of FlowMseLossV2 over all scales except the final
+    bilinear-only output."""
+    return sum(flow_loss_v2(flo_true, p, delta) for p in flo_preds[:-1])
+
+
+def epe_error(flo_true: torch.Tensor, flo_pred: torch.Tensor) -> torch.Tensor:
+    """End-point error: mean L2 norm of the flow residual."""
+    return torch.mean(torch.linalg.vector_norm(flo_true - flo_pred, dim=-1))
+
+
+def l2_regularization(model: nn.Module, gamma: float = 4e-6) -> torch.Tensor:
+    """gamma * sum(weight**2) over the ``.weight`` of every module named
+    conv_a, conv_aa, conv_b or conv_up (Keras l2 sums, it does not
+    average)."""
+    total = torch.zeros((), dtype=torch.float32,
+                        device=next(model.parameters()).device)
+    for name, module in model.named_modules():
+        if name.rsplit(".", 1)[-1] in L2_MODULES:
+            total = total + torch.sum(torch.square(module.weight.float()))
+    return gamma * total

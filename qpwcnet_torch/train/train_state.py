@@ -1,0 +1,103 @@
+"""The supervised flow training step (port of
+qpwcnet_tpu/train/train_state.py, flow half).
+
+The JAX TrainState pytree becomes the model itself (parameters and
+BatchNorm running statistics) and a :class:`GradientChain`, the optax
+chain over the model's ``.grad``: NaN scrub -> [AGC] -> Adam.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Iterable, Optional, Sequence
+
+import torch
+import torch.nn as nn
+
+from qpwcnet_torch.train.agc import adaptive_clip_grads, zero_nan_grads
+from qpwcnet_torch.train.losses import (
+    epe_error,
+    l2_regularization,
+    multiscale_flow_loss,
+)
+
+
+class GradientChain:
+    """zero_nan_grads -> adaptive_clip_grads (when ``clip_factor`` is
+    set) -> ``torch.optim.Adam(lr)`` (optax.adam's defaults: betas .9 /
+    .999, eps 1e-8) over all of ``model``'s parameters."""
+
+    def __init__(self, model: nn.Module, learning_rate: float,
+                 clip_factor: Optional[float] = None, eps: float = 1e-3,
+                 exclude: Sequence[str] = ()):
+        self.model = model
+        self.clip_factor = clip_factor
+        self.eps = eps
+        self.exclude = tuple(exclude)
+        self.adam = torch.optim.Adam(model.parameters(), lr=learning_rate)
+
+    def zero_grad(self) -> None:
+        self.adam.zero_grad(set_to_none=True)
+
+    def step(self) -> None:
+        zero_nan_grads(self.model)
+        if self.clip_factor is not None:
+            adaptive_clip_grads(self.model, self.clip_factor, self.eps,
+                                self.exclude)
+        self.adam.step()
+
+
+def default_optimizer(model: nn.Module, learning_rate: float = 1e-4,
+                      clip_factor: float = 0.01,
+                      eps: float = 1e-3) -> GradientChain:
+    """NaN-grad scrub -> AGC -> Adam, with the flow heads ('of_flow')
+    exempt from AGC, as the JAX package's default_optimizer."""
+    return GradientChain(model, learning_rate, clip_factor, eps,
+                         exclude=("of_flow",))
+
+
+def plain_optimizer(model: nn.Module, learning_rate: float) -> GradientChain:
+    """NaN-grad scrub -> Adam: the 'plain' chain of the train app."""
+    return GradientChain(model, learning_rate)
+
+
+def make_flow_train_step(l2_gamma: float = 4e-6) -> Callable:
+    """Supervised-flow train step ``step(model, optimizer, batch)``.
+
+    batch = {'ims': (B, H, W, 6) float32 in [-0.5, 0.5], 'flo': (B, H, W,
+    2)}. Runs the model in train mode (BatchNorm on batch statistics,
+    updating its running statistics), backpropagates the multiscale loss
+    plus the kernel l2 term, and steps the optimizer. Returns {'loss',
+    'epe'} as 0-d tensors on the model's device.
+    """
+
+    def train_step(model: nn.Module, optimizer: GradientChain,
+                   batch: dict) -> dict:
+        model.train()
+        optimizer.zero_grad()
+        outs = model(batch["ims"], multiscale=True)
+        loss = (multiscale_flow_loss(batch["flo"], outs)
+                + l2_regularization(model, l2_gamma))
+        loss.backward()
+        optimizer.step()
+        with torch.no_grad():
+            epe = epe_error(batch["flo"], outs[-1])
+        return {"loss": loss.detach(), "epe": epe}
+
+    return train_step
+
+
+@torch.no_grad()
+def recalibrate_batch_stats(model: nn.Module,
+                            batches: Iterable[torch.Tensor],
+                            n_passes: int = 200) -> nn.Module:
+    """Re-estimate the BatchNorm running statistics with train-mode
+    forwards over up to ``n_passes`` input batches; the parameters are
+    untouched and the model's train/eval mode is restored."""
+    was_training = model.training
+    model.train()
+    for i, ims in enumerate(batches):
+        if i >= n_passes:
+            break
+        model(ims)
+    model.train(was_training)
+    return model

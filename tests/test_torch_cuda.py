@@ -17,16 +17,29 @@ import numpy as np
 import pytest
 import torch
 
+from qpwcnet_torch.models import build_flow_net
 from qpwcnet_torch.ops import cuda as kernels
-from qpwcnet_torch.ops.cost_volume import cost_volume_plain
-from qpwcnet_torch.ops.cuda.cost_volume_kernel import cost_volume_cuda
+from qpwcnet_torch.ops.cost_volume import (
+    CostVolumeFunction,
+    cost_volume,
+    cost_volume_bwd_nxt_plain,
+    cost_volume_bwd_prv_plain,
+    cost_volume_plain,
+)
+from qpwcnet_torch.ops.cuda.cost_volume_kernel import (
+    cost_volume_bwd_nxt_cuda,
+    cost_volume_bwd_prv_cuda,
+    cost_volume_cuda,
+)
 from qpwcnet_torch.ops.cuda.stem_kernel import (
     downconv_stage_cuda,
     downconv_stage_plain,
+    downconv_stage_trainable,
 )
 from qpwcnet_torch.ops.cuda.warp_cv_kernel import (
     warp_cost_volume_cuda,
     warp_cost_volume_plain,
+    warp_cost_volume_trainable,
 )
 
 REL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
@@ -111,6 +124,72 @@ def test_downconv_stage_kernel(dev, dtype, cin, cout):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 13, 37, 20), (1, 9, 21, 72)])
+def test_cost_volume_bwd_kernels(dev, dtype, shape):
+    """K4a and K4b against their plain versions; C = 72 spans three
+    channel groups of a block, the last one ragged."""
+    rng = np.random.RandomState(4)
+    dacc = _rand(rng, shape[:3] + (81,), dev, dtype)
+    prv = _rand(rng, shape, dev, dtype)
+    nxt = _rand(rng, shape, dev, dtype)
+    kernels.reset_launch_counts()
+    _assert_close(cost_volume_bwd_prv_cuda(dacc, nxt),
+                  cost_volume_bwd_prv_plain(dacc, nxt))
+    _assert_close(cost_volume_bwd_nxt_cuda(dacc, prv),
+                  cost_volume_bwd_nxt_plain(dacc, prv))
+    assert cost_volume_bwd_prv_cuda.launches == 1
+    assert cost_volume_bwd_nxt_cuda.launches == 1
+
+
+@pytest.mark.cuda
+def test_cost_volume_function_grads_match_plain_autograd(dev):
+    rng = np.random.RandomState(5)
+    prv, nxt = (_rand(rng, (2, 11, 19, 24), dev) for _ in range(2))
+    leaves = [t.clone().requires_grad_() for t in (prv, nxt, prv, nxt)]
+    g = _rand(rng, (2, 11, 19, 81), dev)
+    kernels.reset_launch_counts()
+    CostVolumeFunction.apply(leaves[0], leaves[1]).backward(g)
+    cost_volume_plain(leaves[2], leaves[3]).backward(g)
+    assert kernels.launch_counts() == {
+        "cost_volume_cuda": 1, "downconv_stage_cuda": 0,
+        "warp_cost_volume_cuda": 0, "cost_volume_bwd_prv_cuda": 1,
+        "cost_volume_bwd_nxt_cuda": 1}
+    _assert_close(leaves[0].grad, leaves[2].grad)
+    _assert_close(leaves[1].grad, leaves[3].grad)
+
+
+@pytest.mark.cuda
+def test_kernel_outputs_carry_gradients(dev):
+    """The kernels' outputs stay in the autograd graph, and every
+    parameter of a model with the fused stem and the fused warp+correlate
+    gets a non-zero gradient (encoder stages 0 and 1 included)."""
+    rng = np.random.RandomState(6)
+    prv = _rand(rng, (1, 8, 16, 16), dev).requires_grad_()
+    nxt = _rand(rng, (1, 8, 16, 16), dev).requires_grad_()
+    flow = _rand(rng, (1, 8, 16, 2), dev, scale=2.0).requires_grad_()
+    x = _rand(rng, (1, 8, 16, 3), dev).requires_grad_()
+    params = [(_rand(rng, (16, c, 3, 3), dev, scale=0.2).requires_grad_(),
+               _rand(rng, (16,), dev, scale=0.1).requires_grad_())
+              for c in (3, 16, 16)]
+    for out in (cost_volume(prv, nxt),
+                warp_cost_volume_trainable(prv, nxt, flow),
+                downconv_stage_trainable(x, params, torch.float32)):
+        assert out.requires_grad and out.grad_fn is not None
+    model = build_flow_net(0, dev, cv_impl="fast", stem_stages=2,
+                           head_scale="unit").train()
+    ims = _rand(rng, (2, 64, 128, 6), dev, scale=0.3)
+    outs = model(ims, multiscale=True)
+    sum(o.square().mean() for o in outs[:-1]).backward()
+    zero = [n for n, p in model.named_parameters()
+            if p.grad is None or not bool(p.grad.abs().max() > 0)]
+    assert not zero, zero
+    for i in (0, 1):
+        assert float(model.encoder.stages[i].conv_a.weight.grad.abs()
+                     .max()) > 0
+
+
+@pytest.mark.cuda
 def test_wrappers_validate_inputs(dev):
     rng = np.random.RandomState(3)
     prv = _rand(rng, (1, 8, 16, 8), dev)
@@ -121,3 +200,8 @@ def test_wrappers_validate_inputs(dev):
     with pytest.raises(ValueError):
         warp_cost_volume_cuda(prv, prv, torch.zeros(1, 8, 16, 2,
                                                     device=dev).double())
+    dacc = _rand(rng, (1, 8, 16, 81), dev)
+    with pytest.raises(ValueError):
+        cost_volume_bwd_prv_cuda(dacc[..., :49].contiguous(), prv)
+    with pytest.raises(ValueError):
+        cost_volume_bwd_nxt_cuda(dacc.bfloat16(), prv)

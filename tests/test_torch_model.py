@@ -190,10 +190,12 @@ def test_fast_preset_fuses_only_the_finest_level():
 
 
 def test_port_imports_no_jax():
-    """The port package, its models and the infer app import neither jax
-    nor the JAX package."""
+    """The port package, its models, training, data and apps import
+    neither jax nor the JAX package."""
     code = ("import sys, qpwcnet_torch, qpwcnet_torch.models, "
-            "qpwcnet_torch.apps.infer, qpwcnet_torch.ops.cuda; "
+            "qpwcnet_torch.apps.infer, qpwcnet_torch.ops.cuda, "
+            "qpwcnet_torch.train, qpwcnet_torch.data, "
+            "qpwcnet_torch.apps.train_flow; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'qpwcnet_tpu')]; "
             "assert not bad, bad")

@@ -1,0 +1,266 @@
+"""The PyTorch port's supervised flow training step, synthetic data and
+train app on CPU, against the JAX package where it has a counterpart.
+
+One Flax tree is loaded into both models; gradients and parameters come
+back to the Flax layout through ``to_flax_tree``. Tolerances: the loss
+and the BatchNorm statistics to 1e-5; every gradient to 1e-4 of its
+leaf's max|g| (the port's model bound: five levels of float32 convs
+summed in another order feed the warp coordinates; for the leaves that
+feed a train-mode BatchNorm, of the largest in their flow head, see
+``_grad_tol``); the parameters after
+one Adam step to 1e-3 of the learning rate plus what the gradient
+tolerance moves the step by (stated at the checks).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from qpwcnet_tpu.data.pipeline import preprocess_flow_batch as j_preprocess
+from qpwcnet_tpu.train import create_flow_train_state
+from qpwcnet_tpu.train import make_flow_train_step as j_make_step
+from qpwcnet_tpu.train.agc import zero_nan_grads as j_zero_nan_grads
+from qpwcnet_tpu.train.train_state import default_optimizer as j_default_opt
+from qpwcnet_torch.apps import train_flow
+from qpwcnet_torch.data import preprocess_flow_batch, synthetic_flow_batch
+from qpwcnet_torch.models import build_flow_net, load_flax_variables
+from qpwcnet_torch.models.from_flax import to_flax_tree
+from qpwcnet_torch.ops.warp import backward_warp
+from qpwcnet_torch.train import (
+    default_optimizer,
+    make_flow_train_step,
+    plain_optimizer,
+)
+from tests.conftest import TEST_HW
+from tests.test_torch_model import _seeded
+
+H, W = TEST_HW
+LR = 1e-4
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(lambda a: np.array(a, np.float32),
+                                  jax.device_get(tree))
+
+
+def _recording():
+    """An optax transform that keeps the raw gradients as its state."""
+    return optax.GradientTransformation(
+        lambda params: jax.tree_util.tree_map(jnp.zeros_like, params),
+        lambda updates, state, params=None: (updates, updates))
+
+
+def _leaves(tree):
+    return {jax.tree_util.keystr(p): np.asarray(v, np.float32)
+            for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _batch(seed):
+    rng = np.random.RandomState(seed)
+    ims = rng.uniform(-0.5, 0.5, (2, H, W, 6)).astype(np.float32)
+    flo = rng.uniform(-3.0, 3.0, (2, H, W, 2)).astype(np.float32)
+    return ims, flo
+
+
+def _jax_step(model_j, v, ims, flo):
+    """JAX make_flow_train_step under the plain chain, with the raw
+    gradients recorded; then the reference chain (default_optimizer) on
+    the same gradients. Returns (loss, grads, batch_stats, params after
+    the plain chain, params after the reference chain)."""
+    tx = optax.chain(_recording(), j_zero_nan_grads(), optax.adam(LR))
+    state = create_flow_train_state(model_j, v, tx=tx)
+    new, metrics = jax.jit(j_make_step())(
+        state, {"ims": jnp.asarray(ims), "flo": jnp.asarray(flo)})
+    grads = new.opt_state[0]
+    ref = j_default_opt(LR)
+    upd, _ = jax.jit(ref.update)(grads, ref.init(v["params"]), v["params"])
+    return (float(metrics["loss"]), _np_tree(grads),
+            _np_tree(new.batch_stats), _np_tree(new.params),
+            _np_tree(optax.apply_updates(v["params"], upd)))
+
+
+def _port_step(v, chain, ims, flo, **kw):
+    model = load_flax_variables(build_flow_net(0, "cpu", **kw), v)
+    opt = chain(model, LR)
+    m = make_flow_train_step()(model, opt, {"ims": torch.from_numpy(ims),
+                                             "flo": torch.from_numpy(flo)})
+    return model, m
+
+
+# Leaves whose gradient is the small remainder of a near-total
+# cancellation: they feed a flow head's train-mode BatchNorm, directly or
+# through its 1x1 conv, and BatchNorm removes any per-channel shift.
+CANCELLING = ("['conv1x1']['bias']", "['of_feat_3']['pointwise']['bias']")
+
+
+def _grad_tol(key, grads):
+    """The gradient tolerance of a leaf: 1e-4 of its max|g|, or for a
+    cancelling leaf of the largest max|g| in its flow head (the size of
+    the terms that cancel)."""
+    if not key.endswith(CANCELLING):
+        return 1e-4 * float(np.max(np.abs(grads[key])))
+    head = key.split("['flow']")[0] + "['flow']"
+    return 1e-4 * max(float(np.max(np.abs(g))) for k, g in grads.items()
+                      if k.startswith(head))
+
+
+def _check_params(got, want, grads, eps=1e-8):
+    """One Adam step moves each parameter by -lr * g / (|g| + eps). With
+    dg the gradient tolerance, that is exact to 1e-3 of lr, plus the
+    float32 rounding of both results (2^-23 |p| each), plus dg times the
+    step's slope lr * eps / (|g| + eps)^2 (steep where |g| is near eps);
+    where |g| <= dg the sign of g is not determined and the two steps
+    may differ by up to 2 lr."""
+    g, w, gr = _leaves(got), _leaves(want), _leaves(grads)
+    assert g.keys() == w.keys()
+    for k in w:
+        err = np.abs(g[k] - w[k])
+        dg = _grad_tol(k, gr)
+        slope = LR * eps / (np.abs(gr[k]) + eps) ** 2
+        tol = 1e-3 * LR + 2.0 ** -22 * np.abs(w[k]) + slope * dg
+        assert not np.any((err > tol) & (np.abs(gr[k]) > dg)), k
+        assert float(np.max(err)) <= 2.0 * LR * (1 + 1e-3), k
+
+
+@pytest.mark.parametrize("head_scale,residual", [("diag", False),
+                                                 ("unit", True)])
+def test_train_step_matches_jax(flow_setup, head_scale, residual):
+    """Fresh 'diag' heads output 0 at every level, so every warp samples
+    integer positions, where the warp's flow gradient takes JAX's clip
+    tie rule; the zero heads also pass no gradient upstream, so that
+    gradient is multiplied by 0 here, and the warp tests hold the rule.
+    Seeded 'unit' heads with residual=True give flows of a few px."""
+    model_j, variables = flow_setup
+    model_j = model_j.clone(head_scale=head_scale, residual=residual)
+    v = (_np_tree(variables) if head_scale == "diag"
+         else _seeded(variables, head_scale, k=0.5, hw=TEST_HW))
+    ims, flo = _batch(1)
+    loss_j, grads_j, stats_j, plain_j, ref_j = _jax_step(model_j, v, ims,
+                                                          flo)
+    kw = dict(head_scale=head_scale, residual=residual)
+
+    model, m = _port_step(v, plain_optimizer, ims, flo, **kw)
+    assert abs(float(m["loss"]) - loss_j) <= 1e-5 * max(1.0, abs(loss_j))
+    assert np.isfinite(float(m["epe"]))
+    got = _leaves(to_flax_tree(model, "grads"))
+    want = _leaves(grads_j)
+    assert got.keys() == want.keys()
+    nonzero = 0
+    for k in want:
+        scale = float(np.max(np.abs(want[k])))
+        nonzero += scale > 0
+        err = float(np.max(np.abs(got[k] - want[k])))
+        assert err <= _grad_tol(k, want) or err == 0.0, (k, err, scale)
+    # a zero head passes no gradient upstream: fresh 'diag' gives one to
+    # the five head kernels and, through the l2 term, to the 19 DownConv
+    # and UpConv kernels only
+    assert nonzero == (5 + 19 if head_scale == "diag" else len(want))
+    for name, node in stats_j["flower"].items():
+        bn = dict(model.named_modules())[
+            ("flower." + name.replace("upflow_", "upflows.")
+             + ".flow.norm")]
+        for key, buf in (("mean", bn.running_mean), ("var", bn.running_var)):
+            assert float(np.max(np.abs(buf.numpy()
+                                       - node["flow"]["norm"][key]))) <= 1e-5
+    _check_params(to_flax_tree(model), plain_j, grads_j)
+
+    model, m = _port_step(v, default_optimizer, ims, flo, **kw)
+    assert abs(float(m["loss"]) - loss_j) <= 1e-5 * max(1.0, abs(loss_j))
+    _check_params(to_flax_tree(model), ref_j, grads_j)
+
+
+def test_train_loss_decreases_bf16():
+    """bf16 compute, float32 parameters: the loss falls over 8 steps on a
+    fixed batch and stays finite (test_train.py's JAX check)."""
+    model = build_flow_net(0, "cpu", dtype=torch.bfloat16)
+    opt = default_optimizer(model, 3e-4)
+    step = make_flow_train_step()
+    rng = np.random.RandomState(0)
+    batch = {"ims": torch.from_numpy(rng.uniform(
+        -0.5, 0.5, (2, H, W, 6)).astype(np.float32)),
+        "flo": torch.tensor([2.0, -1.0]).expand(2, H, W, 2).contiguous()}
+    first = float(step(model, opt, batch)["loss"])
+    for _ in range(8):
+        last = float(step(model, opt, batch)["loss"])
+    assert np.isfinite(first) and np.isfinite(last)
+    assert last < first, (first, last)
+    assert {p.dtype for p in model.parameters()} == {torch.float32}
+
+
+# ---------------------------------------------------------------- data
+
+def test_synthetic_flow_batch():
+    gen = torch.Generator().manual_seed(3)
+    ims, flo = synthetic_flow_batch(gen, 2, 40, 56, max_disp=6.0)
+    assert ims.shape == (2, 40, 56, 6) and ims.dtype == torch.uint8
+    assert flo.shape == (2, 40, 56, 2) and flo.dtype == torch.float32
+    assert float(flo.abs().max()) <= 6.0
+    assert float(flo.abs().mean()) > 0.5
+    again = synthetic_flow_batch(torch.Generator().manual_seed(3), 2, 40, 56,
+                                 max_disp=6.0)
+    assert torch.equal(ims, again[0]) and torch.equal(flo, again[1])
+    other = synthetic_flow_batch(torch.Generator().manual_seed(4), 2, 40, 56,
+                                 max_disp=6.0)
+    assert not torch.equal(ims, other[0])
+    # prv = warp(nxt, flo) wherever the sample lies inside the cropped
+    # nxt: both frames are rounded to uint8, so within 1/255
+    prv, nxt = ims[..., :3].float() / 255, ims[..., 3:].float() / 255
+    gy, gx = torch.meshgrid(torch.arange(40.0), torch.arange(56.0),
+                            indexing="ij")
+    qx, qy = gx + flo[..., 0], gy + flo[..., 1]
+    inside = (qx >= 0) & (qx <= 55) & (qy >= 0) & (qy <= 39)
+    assert float(inside.float().mean()) > 0.5
+    err = (prv - backward_warp(nxt, flo)).abs().amax(-1)
+    assert float(err[inside].max()) <= 1.0 / 255 + 1e-6
+
+
+@pytest.mark.parametrize("out_hw", [(16, 32), (24, 40)])
+def test_preprocess_flow_batch_matches_jax(out_hw):
+    """A resize (flow rescaled per axis), and the app's same-size call
+    with a NaN in the flow, which the scrub zeroes. (A NaN under a
+    downsampling resize spreads over each package's own filter support,
+    which differ.)"""
+    rng = np.random.RandomState(6)
+    ims = rng.randint(0, 256, (2, 24, 40, 6)).astype(np.uint8)
+    flo = rng.uniform(-5, 5, (2, 24, 40, 2)).astype(np.float32)
+    if out_hw == (24, 40):
+        flo[0, 3, 4, 1] = np.nan
+    want = j_preprocess(jax.random.key(0), jnp.asarray(ims),
+                        jnp.asarray(flo), out_hw=out_hw, augment=False)
+    got = preprocess_flow_batch(torch.from_numpy(ims), torch.from_numpy(flo),
+                                out_hw=out_hw)
+    for k in ("ims", "flo"):
+        assert got[k].shape == want[k].shape
+        # bilinear resize of float32 values: rounding-level
+        err = float(np.max(np.abs(got[k].numpy() - np.asarray(want[k]))))
+        assert err <= 1e-5 * max(1.0, float(np.max(np.abs(want[k])))), k
+    assert bool(torch.isfinite(got["flo"]).all())
+
+
+# ----------------------------------------------------------------- app
+
+APP_ARGS = ["--data", "synthetic", "--curriculum", "1", "--batch-size", "2",
+            "--height", "32", "--width", "64", "--device", "cpu",
+            "--log-every", "1", "--recalibrate-final", "2",
+            "--ckpt-every", "100"]
+
+
+def test_train_app_runs_on_cpu(capsys):
+    metrics = train_flow.main(APP_ARGS + ["--steps", "2"])
+    assert set(metrics) == {"loss", "epe"}
+    assert all(np.isfinite(v) for v in metrics.values())
+    err = capsys.readouterr().err
+    assert "skip 1/4 stage" in err and "step 2: loss=" in err
+    assert "epe_eval=" in err and "recalibrated BN stats" in err
+
+
+@pytest.mark.parametrize("extra", [
+    ["--data", "fc3d"], ["--data", "sintel"], ["--data", "synthetic-uniform"],
+    ["--load-ckpt", "runs/x"], ["--qat", "true"], ["--augment", "on"],
+    ["--ckpt-every", "2000", "--steps", "2000"]])
+def test_train_app_refuses_unported_modes(extra):
+    with pytest.raises(NotImplementedError):
+        train_flow.main(APP_ARGS + ["--steps", "2"] + extra)
