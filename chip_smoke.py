@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's flow-inference and flow-training paths on one
-CUDA card.
+"""Drive the PyTorch port's flow-inference, flow-training and
+frame-interpolation paths on one CUDA card.
 
     python3 chip_smoke.py          # from the root of a repository checkout
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. device: the card's name and power limit; TF32 off.
-  2. build: nvcc-builds qpwcnet_torch/csrc/*.cu (sm_90a) and loads it.
+  2. build: nvcc-builds qpwcnet_torch/csrc/*.cu (sm_90a, one nvcc per
+     source, all at once) and loads the library.
   3. kernel equality: each CUDA kernel against its plain PyTorch version
      at the headline shapes (448x1024 input, batch 8, so 2B = 16 through
      the encoder), at batch 1 (the infer app's) and at one shape that is
@@ -15,6 +16,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      configuration (256x512, batch 16), at batch 1 and at an odd shape,
      and the trainable cost volume's gradients against autograd of the
      plain cost volume at the finest training level.
+  3c. K5, the fused decoder UpConv stage, against its plain version at the
+     decoder's stages 2 and 3 of the interpolator's training step, of the
+     flow headline and of batch 1, and at an odd shape, float32 and bf16;
+     the trainable K5's gradients against autograd of the plain version.
   4. slice: PWCFlowNet at 448x1024 b8 with seeded, non-zero flow heads,
      exact and 'fast', against the plain model (stem_stages=0,
      cv_impl='plain') in bf16 and float32, with each kernel's launch
@@ -30,14 +35,30 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      steps on a fixed batch; then the train app
      (qpwcnet_torch.apps.train_flow, synthetic data, 4 steps) as the
      second main path.
+  4c. interpolator slice at 256x512 b8 (the JAX bench's pretraining
+     configuration), stem_stages=2, upconv_stages=2: the eval forward
+     (images and both directions' flows) against the plain interpolator
+     in bf16 and float32, one pretraining step's every gradient against
+     the plain model's, the launches per forward (K1 5, K2 2, K5 2) and
+     per step (also K4a 5, K4b 5), the loss falling over 5 steps; one
+     bf16 PWCFlowNet forward with upconv_stages=2 at 448x1024 b8 against
+     the plain flow model; then three main paths: the library entry
+     points (build_interpolator + make_interp_train_step, 2 steps and an
+     eval forward), the pretrain_interp app (4 steps) and the
+     interp_infer app (2 synthetic triplets).
   5. times: CUDA events after warm-up, median of N: each kernel against
      its plain version at the headline shapes (K4a and K4b at the training
-     levels), the whole forward, and the train step.
+     levels, K5 at its six shapes), beside its bound and, for K2 and K5,
+     the cuDNN call computing the same product; the flow forward, the
+     flow train step, the interpolator forward and the pretraining step.
 
-The line before the card line is a JSON object with one entry per kernel,
-whose launch count is the sum over the two main paths' runs (each run
-with the counts set to 0 just before it and read just after); the last
-line is {"ok": true, "device": {...}}.
+The line before the card line is a JSON object with one entry per kernel:
+its launches summed over the main paths' runs (each run with the counts
+set to 0 just before it and read just after; each path's count is also
+listed), its largest error in phase 3/3c, and its kernel, plain, bound
+and library times summed over the shapes timed for it (K5: the
+interpolator's two training shapes); the last line is {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -92,7 +113,27 @@ KERNELS = {
     "cost_volume_bwd_nxt": dict(
         source="qpwcnet_torch/csrc/cost_volume_bwd.cu",
         replaces="qpwcnet_tpu/ops/pallas/cost_volume_kernel.py:293"),
+    "upconv_stage": dict(
+        source="qpwcnet_torch/csrc/upconv.cu",
+        replaces="qpwcnet_tpu/ops/pallas/upconv_kernel.py:61"),
 }
+# The interpolator slice: the JAX bench's pretraining configuration
+# (bench.py:205-223), and the kernel model's options on it
+INTERP_B = 8
+INTERP_KW = dict(cv_impl="auto", stem_stages=2, upconv_stages=2)
+PLAIN_KW = dict(cv_impl="plain", stem_stages=0, upconv_stages=0)
+# K5's shapes, (B, H, W, Ci) -> Co: decoder stages 2 and 3 of the
+# interpolator's training step (2B = 16 at 256x512), of the flow
+# headline (2B = 16 at 448x1024), at batch 1 (256x512), and one shape
+# that is no tile multiple
+UPCONV_SHAPES = [((16, 32, 64, 128), 32), ((16, 64, 128, 64), 16),
+                 ((16, 56, 128, 128), 32), ((16, 112, 256, 64), 16),
+                 ((2, 32, 64, 128), 32), ((2, 64, 128, 64), 16),
+                 ((3, 13, 37, 128), 32)]
+# The H100 SXM's published peaks (NVIDIA data sheet, 700 W): device
+# memory bytes/s and dense bf16 tensor-core operations/s
+PEAK_BYTES = 3.35e12
+PEAK_OPS_BF16 = 989e12
 
 
 def log(msg: str) -> None:
@@ -112,6 +153,20 @@ def check(cond: bool, msg: str) -> None:
 
 def max_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max())
+
+
+def bf16_ulps(got, want) -> str:
+    """max|want|, the largest |got - want| in bf16 ulps of max|want| (an
+    ulp of v is 2^(floor(log2|v|) - 7)), and |want| where that error is."""
+    import math
+
+    d = (got.float() - want.float()).abs().flatten()
+    worst = int(d.argmax())
+    top = float(want.float().abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+    return (f"max|plain|={top:.4f} (ulp {ulp:g}), max error "
+            f"{float(d[worst]) / ulp:g} ulps of it, at |plain|="
+            f"{abs(float(want.flatten()[worst])):.4f}")
 
 
 def compare(tag, got, want, rel, errs, key):
@@ -176,11 +231,11 @@ def seed_flow_heads(model, seed: int, hw, k: float = 1.5) -> None:
             head.norm.running_var.copy_(t(rng.uniform(0.5, 1.5, 16)))
 
 
-def counts_of(K1=0, K2=0, K3=0, K4a=0, K4b=0) -> dict:
+def counts_of(K1=0, K2=0, K3=0, K4a=0, K4b=0, K5=0) -> dict:
     """Launch counts by wrapper name (qpwcnet_torch.ops.cuda)."""
     return {"cost_volume_cuda": K1, "downconv_stage_cuda": K2,
             "warp_cost_volume_cuda": K3, "cost_volume_bwd_prv_cuda": K4a,
-            "cost_volume_bwd_nxt_cuda": K4b}
+            "cost_volume_bwd_nxt_cuda": K4b, "upconv_stage_cuda": K5}
 
 
 def build(dtype, dev, hw=(H, W), k=1.5, **kw):
@@ -367,6 +422,73 @@ def phase_kernels_bwd(dev, errs):
     torch.cuda.empty_cache()
 
 
+def upconv_params(g, dev, ci, co):
+    """A transpose-conv weight (Ci, Co, 4, 4) and bias, float32, scaled so
+    that the outputs are of order 1."""
+    import torch
+
+    w = torch.randn((ci, co, 4, 4), generator=g, device=dev) * (4 * ci) ** -0.5
+    return w, 0.1 * torch.randn((co,), generator=g, device=dev)
+
+
+def phase_kernels_upconv(dev, errs):
+    """Phase 3c: K5 against its plain version at the decoder's shapes, and
+    the trainable K5's gradients against autograd of the plain version."""
+    import torch
+
+    from qpwcnet_torch.ops import cuda as kernels
+    from qpwcnet_torch.ops.cuda.upconv_kernel import (
+        upconv_stage_cuda, upconv_stage_plain, upconv_stage_trainable)
+
+    log("== phase 3c: K5 upconv_stage against its plain version, tolerance "
+        f"{REL_F32:g} (f32) / {2 * REL_BF16:g} (bf16: two ulps, since a "
+        "one-ulp flip of the rounded sum moves the bias add's and Mish's "
+        "roundings too) of max(1, max|plain|)")
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    for dtype in (torch.float32, torch.bfloat16):
+        rel = REL_F32 if dtype == torch.float32 else 2 * REL_BF16
+        dn = str(dtype).split(".")[-1]
+        for shape, co in UPCONV_SHAPES:
+            x = torch.randn(shape, generator=g, device=dev).to(dtype)
+            w, b = upconv_params(g, dev, shape[-1], co)
+            got = upconv_stage_cuda(x, w, b, dtype)
+            want = upconv_stage_plain(x, w, b, dtype)
+            compare(f"K5 upconv_stage {dn} {shape}->{co}", got, want, rel,
+                    errs, "upconv_stage")
+            if dtype == torch.bfloat16:
+                log(f"    {bf16_ulps(got, want)}")
+        torch.cuda.empty_cache()
+
+    # The trainable stage (K5 forward, the unfused composition's
+    # backward) against autograd of the plain version, float32: the same
+    # backward on the same inputs, so only cuDNN's own nondeterminism.
+    shape, co = UPCONV_SHAPES[1]
+    x = torch.randn(shape, generator=g, device=dev)
+    w, b = upconv_params(g, dev, shape[-1], co)
+    gout = torch.randn((shape[0], 2 * shape[1], 2 * shape[2], co),
+                       generator=g, device=dev)
+    grads = []
+    for fn in ("kernel", "plain"):
+        leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+        kernels.reset_launch_counts()
+        if fn == "kernel":
+            y = upconv_stage_trainable(leaves[0], [tuple(leaves[1:])],
+                                       torch.float32)
+        else:
+            y = upconv_stage_plain(*leaves, torch.float32)
+        y.backward(gout)
+        torch.cuda.synchronize()
+        check(kernels.launch_counts() == counts_of(K5=int(fn == "kernel")),
+              f"trainable K5 {fn}: launches {kernels.launch_counts()}")
+        grads.append([t.grad for t in leaves])
+    for name, got, want in zip(("x", "weight", "bias"), *grads):
+        compare(f"upconv_stage_trainable d{name} f32 {shape}->{co} vs "
+                "autograd of upconv_stage_plain", got, want, REL_F32, {},
+                "function")
+    del x, w, b, gout, grads, leaves, y
+    torch.cuda.empty_cache()
+
+
 def phase_slice(dev):
     import numpy as np
     import torch
@@ -417,21 +539,8 @@ def phase_slice(dev):
             check(beyond > 0.0, "no flow beyond the fused window: the "
                   "'fast' check would be vacuous")
             del ms, fin_in
-            ref = flows["plain", dtype]
-            scale = max(1.0, float(ref.abs().max()))
-            # float32: five levels of convs in another summation order
-            # feeding the warp coordinates, 1e-4 of the flow magnitude (the
-            # JAX parity bound of tests/test_torch_model.py); bf16: a
-            # one-ulp difference early moves later warps, 5% of it max
-            # and 0.5% mean.
-            rel = 1e-4 if dtype == f32 else 5e-2
-            err = max_err(flows["exact", dtype], ref)
-            mean = float((flows["exact", dtype] - ref).abs().mean())
-            log(f"  exact vs plain {dn}: max_abs_err={err:.3e} "
-                f"mean_abs_err={mean:.3e} tol={rel * scale:.3e}")
-            check(err <= rel * scale, f"exact vs plain {dn}: {err}")
-            if dtype == bf16:
-                check(mean <= 5e-3 * scale, f"exact vs plain {dn} mean")
+            compare_model(f"exact vs plain {dn}", flows["exact", dtype],
+                          flows["plain", dtype], dtype)
             d_fast = max_err(flows["fast", dtype], flows["exact", dtype])
             m_fast = float((flows["fast", dtype]
                             - flows["exact", dtype]).abs().mean())
@@ -496,10 +605,11 @@ def build_train(dtype, dev, k=TRAIN_K, **kw):
     return build(dtype, dev, hw=(TRAIN_H, TRAIN_W), k=k, **kw)
 
 
-def grad_step(model, batch):
-    """One make_flow_train_step with the plain chain at learning rate 0,
-    so the parameters stay as they were. Returns (loss, {name: grad},
-    launch counts of the step)."""
+def grad_step(model, batch, make_step=None):
+    """One train step (make_flow_train_step unless ``make_step`` names
+    another step maker) with the plain chain at learning rate 0, so the
+    parameters stay as they were. Returns (loss, {name: grad}, launch
+    counts of the step)."""
     import torch
 
     from qpwcnet_torch.ops import cuda as kernels
@@ -507,7 +617,7 @@ def grad_step(model, batch):
 
     opt = plain_optimizer(model, 0.0)
     kernels.reset_launch_counts()
-    m = make_flow_train_step()(model, opt, batch)
+    m = (make_step or make_flow_train_step)()(model, opt, batch)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
@@ -658,9 +768,290 @@ def phase_train(dev):
     return main_counts, batch
 
 
-def phase_times(dev, x, batch):
+def interp_batch(dev, seed, augment=False):
+    """A synthetic pretraining triplet batch at the interpolator slice's
+    configuration (256x512, batch 8)."""
     import torch
 
+    from qpwcnet_torch.data import (
+        preprocess_triplet_batch, synthetic_triplet_batch)
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a, b, c = synthetic_triplet_batch(gen, INTERP_B, TRAIN_H, TRAIN_W)
+    return preprocess_triplet_batch(gen, a, b, c, augment=augment)
+
+
+def build_interp(dtype, dev, k, **kw):
+    """build_interpolator from SEED with flow heads seeded for inputs of
+    256x512 (k = 0: the fresh 'diag' heads, zero flow)."""
+    from qpwcnet_torch.models import build_interpolator
+
+    model = build_interpolator(SEED, dev, dtype=dtype, **kw)
+    if k:
+        seed_flow_heads(model, SEED + 1, (TRAIN_H, TRAIN_W), k=k)
+    return model
+
+
+def compare_model(tag, got, want, dtype):
+    """A model output against the plain model's: float32 within 1e-4 of
+    the magnitude (five levels of convs in another summation order feed
+    the warp coordinates: the JAX parity bound of
+    tests/test_torch_model.py); bf16 within 5% of it max and 0.5% mean (a
+    one-ulp difference early moves later warps)."""
+    import torch
+
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+          f"{tag}: shape {tuple(got.shape)} or non-finite")
+    scale = max(1.0, float(want.abs().max()))
+    err = max_err(got, want)
+    mean = float((got - want).abs().mean())
+    rel = 1e-4 if dtype == torch.float32 else 5e-2
+    log(f"  {tag}: max_abs_err={err:.3e} mean_abs_err={mean:.3e} "
+        f"tol={rel * scale:.3e}")
+    check(err <= rel * scale, f"{tag}: {err}")
+    if dtype != torch.float32:
+        check(mean <= 5e-3 * scale, f"{tag}: mean {mean}")
+
+
+def phase_interp(dev, x):
+    """Phase 4c: the interpolator slice at 256x512 b8."""
+    import numpy as np
+    import torch
+
+    from qpwcnet_torch.apps import interp_infer, pretrain_interp
+    from qpwcnet_torch.models import build_interpolator
+    from qpwcnet_torch.ops import cuda as kernels
+    from qpwcnet_torch.train import (
+        create_interp_train_state, make_interp_train_step, plain_optimizer)
+
+    log(f"== phase 4c: interpolator slice, PWCInterpolator {TRAIN_H}x"
+        f"{TRAIN_W} b{INTERP_B}, {INTERP_KW} against {PLAIN_KW}")
+    bf16, f32 = torch.bfloat16, torch.float32
+    batch = interp_batch(dev, SEED + 8)
+    per_fwd = counts_of(K1=5, K2=2, K5=2)
+    per_step = counts_of(K1=5, K2=2, K5=2, K4a=5, K4b=5)
+    with torch.inference_mode():
+        for dtype in (bf16, f32):
+            dn = str(dtype).split(".")[-1]
+            outs = {}
+            for mode, kw in (("exact", INTERP_KW), ("plain", PLAIN_KW)):
+                m = build_interp(dtype, dev, k=1.5, **kw)
+                kernels.reset_launch_counts()
+                outs[mode] = m(batch["ims"], return_flows=True)
+                torch.cuda.synchronize()
+                counts = kernels.launch_counts()
+                want = per_fwd if mode == "exact" else counts_of()
+                check(counts == want, f"interp {mode} {dn}: launches "
+                      f"{counts}, expected {want}")
+                img = outs[mode][0]
+                check(tuple(img.shape) == (INTERP_B, TRAIN_H, TRAIN_W, 3)
+                      and img.dtype == f32, f"interp {mode} {dn}: output "
+                      f"{tuple(img.shape)} {img.dtype}")
+                log(f"  {mode} {dn}: launches {counts}, mean|flow_01| "
+                    f"{float(outs[mode][1][0][-1].abs().mean()):.3f} px")
+                del m
+            compare_model(f"interp image exact vs plain {dn}",
+                          outs["exact"][0], outs["plain"][0], dtype)
+            for d, name in enumerate(("flos_01", "flos_10")):
+                worst = max(range(6), key=lambda i: max_err(
+                    outs["exact"][1][d][i], outs["plain"][1][d][i]))
+                compare_model(f"interp {name}[{worst}] (worst of 6) exact "
+                              f"vs plain {dn}", outs["exact"][1][d][worst],
+                              outs["plain"][1][d][worst], dtype)
+            del outs
+            torch.cuda.empty_cache()
+
+        # K5 in the flow model at the headline shapes
+        outs = {}
+        for mode, kw in (("exact", dict(cv_impl="auto", stem_stages=2,
+                                        upconv_stages=2)),
+                         ("plain", PLAIN_KW)):
+            m = build(bf16, dev, **kw)
+            kernels.reset_launch_counts()
+            outs[mode] = m(x)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            want = counts_of(K1=5, K2=2, K5=2) if mode == "exact" else \
+                counts_of()
+            check(counts == want, f"flow net upconv_stages=2 {mode}: "
+                  f"launches {counts}")
+            del m
+        log(f"  PWCFlowNet {H}x{W} b{B} bf16, upconv_stages=2: launches "
+            f"{counts_of(K1=5, K2=2, K5=2)}")
+        compare_model("flow net upconv_stages=2 vs plain bf16",
+                      outs["exact"], outs["plain"], bf16)
+        del outs
+        torch.cuda.empty_cache()
+
+    # One pretraining step: every parameter's gradient against the plain
+    # model's, float32 and bf16, with seeded flow heads.
+    plain32 = None
+    for dtype in (f32, bf16):
+        dn = str(dtype).split(".")[-1]
+        grads = {}
+        for mode, kw in (("exact", INTERP_KW), ("plain", PLAIN_KW)):
+            m = build_interp(dtype, dev, k=TRAIN_K, **kw)
+            loss, grads[mode], counts = grad_step(m, batch,
+                                                  make_interp_train_step)
+            want = per_step if mode == "exact" else counts_of()
+            log(f"  pretraining step {mode} {dn}: loss {loss:.6f}, "
+                f"launches {counts}")
+            check(np.isfinite(loss), f"interp {mode} {dn}: loss {loss}")
+            check(counts == want, f"interp step {mode} {dn}: launches "
+                  f"{counts}, expected {want}")
+            del m
+            torch.cuda.empty_cache()
+        compare_grads(f"interp exact vs plain grads {dn}", grads["exact"],
+                      grads["plain"], plain32)
+        plain32 = grads["plain"]
+        del grads
+    del plain32
+
+    # The trainable head parameterization ('unit' + residual, fresh
+    # heads): under 'diag' the heads' output scale, sqrt(h² + w²) ~ 570
+    # here, turns Adam's first 3e-4 step on seeded heads into flows tens
+    # of px off, and the loss jumps before it falls.
+    m = build_interp(f32, dev, k=0.0, head_scale="unit", residual=True,
+                     **INTERP_KW)
+    opt = plain_optimizer(m, 3e-4)
+    step = make_interp_train_step()
+    losses = [float(step(m, opt, batch)["loss"]) for _ in range(5)]
+    log(f"  interp exact float32 ('unit' heads, residual), 5 steps on one "
+        f"batch (Adam 3e-4): losses {[round(v, 6) for v in losses]}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"interp loss did not fall: {losses}")
+    del m, opt
+    torch.cuda.empty_cache()
+
+    # The main path: the library entry points, as bench.py drives the JAX
+    # pretraining step: 2 steps on fresh augmented batches, then one eval
+    # forward, bf16.
+    n_steps = 2
+    log(f"  interp main path: build_interpolator({INTERP_KW}, bf16) + "
+        f"make_interp_train_step, {n_steps} steps + 1 eval forward")
+    kernels.reset_launch_counts()
+    model = build_interpolator(SEED, dev, dtype=bf16, **INTERP_KW)
+    opt = create_interp_train_state(model, 1e-4)
+    step = make_interp_train_step()
+    metrics = [step(model, opt, interp_batch(dev, SEED + 9 + i, True))
+               for i in range(n_steps)]
+    model.eval()
+    with torch.no_grad():
+        img = model(batch["ims"])
+    torch.cuda.synchronize()
+    interp_counts = kernels.launch_counts()
+    losses = [float(mt["loss"]) for mt in metrics]
+    log(f"  interp main path: losses {losses}, launches {interp_counts}")
+    check(all(np.isfinite(losses)) and bool(torch.isfinite(img).all()),
+          "interp main path: non-finite")
+    n_fwd = n_steps + 1
+    check(interp_counts == counts_of(K1=5 * n_fwd, K2=2 * n_fwd,
+                                     K5=2 * n_fwd, K4a=5 * n_steps,
+                                     K4b=5 * n_steps),
+          f"interp main path launches {interp_counts}")
+    del model, opt, img
+    torch.cuda.empty_cache()
+
+    steps, log_every, recal = 4, 2, 4
+    log(f"  pretrain app: --steps {steps} at {TRAIN_H}x{TRAIN_W} "
+        f"b{INTERP_B} (a main path)")
+    kernels.reset_launch_counts()
+    metrics = pretrain_interp.main([
+        "--steps", str(steps), "--batch-size", str(INTERP_B),
+        "--height", str(TRAIN_H), "--width", str(TRAIN_W),
+        "--log-every", str(log_every), "--recalibrate-final", str(recal),
+        "--device", str(dev)])
+    torch.cuda.synchronize()
+    app_counts = kernels.launch_counts()
+    log(f"  pretrain app: last logged {metrics}, launches {app_counts}")
+    check(all(np.isfinite(v) for v in metrics.values())
+          and "mse_eval" in metrics, "pretrain app metrics")
+    # K1 in every forward (steps, held-out evals, recalibration passes),
+    # K4a and K4b in every step's backward; cv_impl='auto', no stem or
+    # upconv kernels (the JAX app's model)
+    n_fwd = steps + steps // log_every + recal
+    check(app_counts == counts_of(K1=5 * n_fwd, K4a=5 * steps,
+                                  K4b=5 * steps),
+          f"pretrain app launches {app_counts}")
+
+    log(f"  interp_infer app: --data synthetic --n 2 at {TRAIN_H}x{TRAIN_W} "
+        "(a main path)")
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels.reset_launch_counts()
+        results = interp_infer.main([
+            "--data", "synthetic", "--n", "2", "--height", str(TRAIN_H),
+            "--width", str(TRAIN_W), "--out-dir", tmp, "--device", str(dev)])
+        torch.cuda.synchronize()
+        infer_counts = kernels.launch_counts()
+        pngs = sorted(p.name for p in Path(tmp).glob("*.png"))
+    log(f"  interp_infer: {results}, {len(pngs)} PNGs, launches "
+        f"{infer_counts}")
+    check(len(results) == 2 and all(np.isfinite(r["psnr"]) for r in results),
+          "interp_infer PSNR")
+    check(len(pngs) == 14, f"interp_infer wrote {pngs}")
+    check(infer_counts == counts_of(K1=10), f"interp_infer launches "
+          f"{infer_counts}")
+    return {"interp": interp_counts, "pretrain_app": app_counts,
+            "interp_infer_app": infer_counts}, batch
+
+
+def bound(nbytes: float, nops: float) -> tuple:
+    """(bytes term, operations term) in ms: the least time the card could
+    take to move nbytes through device memory and to do nops bf16
+    operations on the tensor cores, at the published peaks."""
+    return nbytes / PEAK_BYTES * 1e3, nops / PEAK_OPS_BF16 * 1e3
+
+
+def bound_cv(b, h, w, c, extra_ops=0, extra_bytes=0):
+    """K1, K3, K4a, K4b at one level, bf16: two (b, h, w, c) maps and one
+    (b, h, w, 81) map moved once; 81·c multiply-adds a pixel."""
+    px = b * h * w
+    return bound(2 * (2 * px * c + 81 * px) + extra_bytes,
+                 2 * 81 * c * px + extra_ops)
+
+
+def bound_stem(b, h, w, cin, cout):
+    """K2, bf16: input, weights and the half-size output once; the three
+    3x3 convs' multiply-adds."""
+    px = b * (h // 2) * (w // 2)
+    return bound(2 * (b * h * w * cin + px * cout
+                      + 9 * cout * (cin + 2 * cout) + 3 * cout),
+                 2 * px * 9 * cout * (cin + 2 * cout))
+
+
+def bound_upconv(b, h, w, ci, co):
+    """K5, bf16 activations: input, float32 weights and the 2x output once;
+    4 taps of ci multiply-adds per output value."""
+    out = b * 4 * h * w * co
+    return bound(2 * (b * h * w * ci + out) + 4 * (16 * ci * co + co),
+                 2 * 4 * ci * out)
+
+
+class Totals:
+    """Each kernel's summed times and bound over the shapes timed for the
+    kernels line."""
+
+    def __init__(self):
+        self.rows = {name: dict(ms=0.0, plain_ms=0.0, library_ms=None,
+                                t_bytes=0.0, t_ops=0.0, bound_ms=0.0)
+                     for name in KERNELS}
+
+    def add(self, name, k, p, bnd, lib=None):
+        r = self.rows[name]
+        r["ms"] += k
+        r["plain_ms"] += p
+        r["t_bytes"] += bnd[0]
+        r["t_ops"] += bnd[1]
+        r["bound_ms"] += max(bnd)
+        if lib is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + lib
+
+
+def phase_times(dev, x, batch, ibatch):
+    import torch
+    import torch.nn.functional as F
+
+    from qpwcnet_torch.layout import nchw
     from qpwcnet_torch.ops.cost_volume import (
         cost_volume_bwd_nxt_plain, cost_volume_bwd_prv_plain,
         cost_volume_plain)
@@ -669,12 +1060,17 @@ def phase_times(dev, x, batch):
         cost_volume_cuda)
     from qpwcnet_torch.ops.cuda.stem_kernel import (
         downconv_stage_cuda, downconv_stage_plain)
+    from qpwcnet_torch.ops.cuda.upconv_kernel import (
+        upconv_stage_cuda, upconv_stage_plain)
     from qpwcnet_torch.ops.cuda.warp_cv_kernel import (
         warp_cost_volume_cuda, warp_cost_volume_plain)
+    from qpwcnet_torch.quantize.qlayers import same_pads
 
     log(f"== phase 5: times (bf16, CUDA events, median of {N_TIMED} after "
         "warm-up; order plain, kernel, kernel, plain, reported the mean "
-        "of each pair)")
+        "of each pair; bound = max(bytes / 3.35 TB/s, bf16 operations / "
+        "989 TFLOP/s); library = one cuDNN call's time where one computes "
+        "the product)")
     bf16 = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
 
@@ -682,23 +1078,27 @@ def phase_times(dev, x, batch):
         return (scale * torch.randn(shape, generator=g, device=dev)
                 ).to(dtype)
 
-    def ab(tag, kern, plain):
+    def ab(tag, kern, plain, bnd, lib=None):
         p1, k1, k2, p2 = (time_ms(plain), time_ms(kern), time_ms(kern),
                           time_ms(plain))
         k, p = (k1 + k2) / 2, (p1 + p2) / 2
+        lib_ms = time_ms(lib) if lib is not None else None
+        lib_txt = f" | library {lib_ms:.4f} ms" if lib is not None else ""
         log(f"  {tag}: kernel {k:.4f} ms ({k1:.4f}, {k2:.4f}) | plain "
-            f"{p:.4f} ms ({p1:.4f}, {p2:.4f}) | x{p / k:.2f}")
-        return k, p
+            f"{p:.4f} ms ({p1:.4f}, {p2:.4f}) | x{p / k:.2f}{lib_txt} | "
+            f"bound {max(bnd) * 1e3:.2f} us (bytes {bnd[0] * 1e3:.2f}, "
+            f"ops {bnd[1] * 1e3:.2f}), kernel/bound x{k / max(bnd):.1f}")
+        return k, p, lib_ms
 
-    totals = {name: [0.0, 0.0] for name in KERNELS}
+    totals = Totals()
     with torch.inference_mode():
         for h, w, c in CV_LEVELS:
             prv, nxt = rand((B, h, w, c)), rand((B, h, w, c))
-            k, p = ab(f"K1 cost_volume ({B},{h},{w},{c})",
-                      lambda: cost_volume_cuda(prv, nxt),
-                      lambda: cost_volume_plain(prv, nxt))
-            totals["cost_volume"][0] += k
-            totals["cost_volume"][1] += p
+            bnd = bound_cv(B, h, w, c)
+            k, p, _ = ab(f"K1 cost_volume ({B},{h},{w},{c})",
+                         lambda: cost_volume_cuda(prv, nxt),
+                         lambda: cost_volume_plain(prv, nxt), bnd)
+            totals.add("cost_volume", k, p, bnd)
         for (b, h, w, cin), cout in (((2 * B, H, W, 3), 16),
                                      ((2 * B, H // 2, W // 2, 16), 32)):
             xs = rand((b, h, w, cin), scale=0.5)
@@ -706,32 +1106,64 @@ def phase_times(dev, x, batch):
                             (9 * ci) ** -0.5),
                        rand((cout,), torch.float32, 0.1))
                       for ci in (cin, cout, cout)]
-            k, p = ab(f"K2 downconv_stage ({b},{h},{w},{cin})->{cout}",
-                      lambda: downconv_stage_cuda(xs, params, bf16),
-                      lambda: downconv_stage_plain(xs, params, bf16))
-            totals["downconv_stage"][0] += k
-            totals["downconv_stage"][1] += p
+            wb = [(wt.to(bf16), bi.to(bf16)) for wt, bi in params]
+            pads = same_pads(h, 3, 2)
+
+            def cudnn_convs():
+                # the three convs with their biases, no Mish: cuDNN
+                y = F.pad(nchw(xs), (pads[0], pads[1], pads[0], pads[1]))
+                y = F.conv2d(y, *wb[0], stride=2)
+                y = F.conv2d(y, *wb[1], padding=1)
+                return F.conv2d(y, *wb[2], padding=1)
+
+            bnd = bound_stem(b, h, w, cin, cout)
+            k, p, lib = ab(
+                f"K2 downconv_stage ({b},{h},{w},{cin})->{cout}",
+                lambda: downconv_stage_cuda(xs, params, bf16),
+                lambda: downconv_stage_plain(xs, params, bf16), bnd,
+                cudnn_convs)
+            totals.add("downconv_stage", k, p, bnd, lib)
         shape = (B, 224, 512, 32)
         prv, nxt = rand(shape), rand(shape)
         flow = rand(shape[:3] + (2,), torch.float32, 3.0)
-        k, p = ab(f"K3 warp_cost_volume {shape}",
-                  lambda: warp_cost_volume_cuda(prv, nxt, flow),
-                  lambda: warp_cost_volume_plain(prv, nxt, flow))
-        totals["warp_cost_volume"] = [k, p]
+        # the bilinear warp: 4 corner products and 3 adds per channel; the
+        # float32 flow read once
+        bnd = bound_cv(*shape, extra_ops=7 * math.prod(shape),
+                       extra_bytes=4 * 2 * math.prod(shape[:3]))
+        k, p, _ = ab(f"K3 warp_cost_volume {shape}",
+                     lambda: warp_cost_volume_cuda(prv, nxt, flow),
+                     lambda: warp_cost_volume_plain(prv, nxt, flow), bnd)
+        totals.add("warp_cost_volume", k, p, bnd)
         del prv, nxt, flow
         for name, kern, plain in (
                 ("cost_volume_bwd_prv", cost_volume_bwd_prv_cuda,
                  cost_volume_bwd_prv_plain),
                 ("cost_volume_bwd_nxt", cost_volume_bwd_nxt_cuda,
                  cost_volume_bwd_nxt_plain)):
-            totals[name] = [0.0, 0.0]
             for h, w, c in TRAIN_LEVELS:
                 dacc, src = rand((TRAIN_B, h, w, 81)), rand((TRAIN_B, h, w, c))
-                k, p = ab(f"{name} ({TRAIN_B},{h},{w},{c})",
-                          lambda: kern(dacc, src), lambda: plain(dacc, src))
-                totals[name][0] += k
-                totals[name][1] += p
+                bnd = bound_cv(TRAIN_B, h, w, c)
+                k, p, _ = ab(f"{name} ({TRAIN_B},{h},{w},{c})",
+                             lambda: kern(dacc, src),
+                             lambda: plain(dacc, src), bnd)
+                totals.add(name, k, p, bnd)
         del dacc, src
+        # K5 at the six decoder shapes; the kernels line sums the two of
+        # the interpolator's training step (its main path)
+        for n, (shape, co) in enumerate(UPCONV_SHAPES[:6]):
+            xs = rand(shape)
+            wt, bi = upconv_params(g, dev, shape[-1], co)
+            wb = (wt.to(bf16), bi.to(bf16))
+            bnd = bound_upconv(*shape, co)
+            k, p, lib = ab(
+                f"K5 upconv_stage {shape}->{co}",
+                lambda: upconv_stage_cuda(xs, wt, bi, bf16),
+                lambda: upconv_stage_plain(xs, wt, bi, bf16), bnd,
+                lambda: F.conv_transpose2d(nchw(xs), *wb, stride=2,
+                                           padding=1))
+            if n < 2:
+                totals.add("upconv_stage", k, p, bnd, lib)
+        del xs
         torch.cuda.empty_cache()
 
         fwd = {}
@@ -749,11 +1181,22 @@ def phase_times(dev, x, batch):
         lat = time_ms(lambda: m(x1), n=N_TIMED)
         log(f"  forward exact bf16 {H}x{W} b1: {lat:.3f} ms")
         del m
+        for mode, kw in (("plain", PLAIN_KW), ("exact", INTERP_KW)):
+            m = build_interp(bf16, dev, k=1.5, **kw)
+            ms = time_ms(lambda: m(ibatch["ims"]), n=N_TIMED)
+            log(f"  interp forward {mode} bf16 {TRAIN_H}x{TRAIN_W} "
+                f"b{INTERP_B}: {ms:.3f} ms, {INTERP_B / ms * 1e3:.2f} "
+                "triplets/s")
+            del m
         torch.cuda.empty_cache()
 
-    # The train step as the app runs it on synthetic data (plain chain,
-    # no l2 term), one batch, parameters updated every step.
-    from qpwcnet_torch.train import make_flow_train_step, plain_optimizer
+    # The train steps as the apps run them on synthetic data, one batch,
+    # parameters updated every step: the flow step with the plain chain
+    # and no l2 term (train_flow's synthetic default), the pretraining
+    # step with the reference chain and l2 (pretrain_interp's).
+    from qpwcnet_torch.train import (
+        create_interp_train_state, make_flow_train_step,
+        make_interp_train_step, plain_optimizer)
 
     step = make_flow_train_step(0.0)
     for dtype in (bf16, torch.float32):
@@ -767,7 +1210,17 @@ def phase_times(dev, x, batch):
                 f"{ms:.3f} ms, {TRAIN_B / ms * 1e3:.2f} img/s")
             del m, opt
             torch.cuda.empty_cache()
-    return totals
+    istep = make_interp_train_step()
+    for mode, kw in (("plain", PLAIN_KW), ("exact", INTERP_KW)):
+        m = build_interp(bf16, dev, k=TRAIN_K, **kw)
+        opt = create_interp_train_state(m, 1e-4)
+        ms = time_ms(lambda: istep(m, opt, ibatch), n=N_STEPS_TIMED,
+                     warmup=2)
+        log(f"  pretraining step {mode} bf16 {TRAIN_H}x{TRAIN_W} "
+            f"b{INTERP_B}: {ms:.3f} ms, {INTERP_B / ms * 1e3:.2f} img/s")
+        del m, opt
+        torch.cuda.empty_cache()
+    return totals.rows
 
 
 def main() -> int:
@@ -783,23 +1236,30 @@ def main() -> int:
     phase_build()
     errs = phase_kernels(dev)
     phase_kernels_bwd(dev, errs)
+    phase_kernels_upconv(dev, errs)
     infer_counts, x = phase_slice(dev)
     train_counts, batch = phase_train(dev)
-    totals = phase_times(dev, x, batch)
+    interp_paths, ibatch = phase_interp(dev, x)
+    totals = phase_times(dev, x, batch, ibatch)
     log(f"== all phases passed in {time.perf_counter() - t0:.1f} s")
 
+    paths = {"infer_app": infer_counts, "train_app": train_counts,
+             **interp_paths}
     entries = []
     for name, meta in KERNELS.items():
         key = f"{name}_cuda"
-        launches = infer_counts[key] + train_counts[key]
+        launches = sum(c[key] for c in paths.values())
         check(launches > 0, f"{name}: no launch on the main paths")
+        t = totals[name]
         entries.append({
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"], "launches": launches,
-            "launches_infer_app": infer_counts[key],
-            "launches_train_app": train_counts[key],
-            "max_abs_err": errs[name],
-            "ms": totals[name][0], "plain_ms": totals[name][1]})
+            **{f"launches_{p}": c[key] for p, c in paths.items()},
+            "max_abs_err": errs[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": "bytes" if t["t_bytes"] >= t["t_ops"]
+            else "operations",
+            "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

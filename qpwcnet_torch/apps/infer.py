@@ -62,7 +62,7 @@ def run(cfg: Settings, model: torch.nn.Module) -> list[float]:
     out_dir.mkdir(parents=True, exist_ok=True)
 
     if cfg.data == "sintel":
-        from qpwcnet_tpu.data.sintel import sintel_tfrecord_iterator
+        from qpwcnet_torch.data.sintel import sintel_tfrecord_iterator
 
         source = sintel_tfrecord_iterator(cfg.data_path)
     else:

@@ -26,13 +26,16 @@ import time
 
 import torch
 
+from qpwcnet_torch.data.synthetic import stream_seed
 from qpwcnet_torch.utils.config import with_args
 
 
 @dataclasses.dataclass
 class Settings:
-    """Flow training settings (the fields of the JAX app's Settings, plus
-    the device)."""
+    """Flow training settings: the fields of the JAX app's Settings that
+    the port reads or refuses (not ``steps_per_call``, which fuses steps
+    into one dispatch, nor ``run_root``, where checkpoints go), plus the
+    device."""
 
     data: str = "synthetic"   # only 'synthetic' is ported
     max_disp: float = 24.0    # synthetic flow magnitude bound (px)
@@ -46,7 +49,6 @@ class Settings:
     augment: str = "auto"     # 'auto' is off for synthetic data
     log_every: int = 100
     ckpt_every: int = 2000
-    run_root: str = "/tmp/qpwcnet_tpu/run"
     load_ckpt: str = ""
     transfer_from_interp: bool = False
     compute_dtype: str = "float32"  # or 'bfloat16'
@@ -61,9 +63,6 @@ class Settings:
     curriculum: str = "5000,4000"
     seed: int = 0
     qat: bool = False
-    # The JAX app's steps fused into one dispatch; the port runs one
-    # step per iteration and reads the field only from config snapshots.
-    steps_per_call: int = 50
     # BatchNorm recalibration passes at the end of training (0: none).
     recalibrate_final: int = 16
     device: str = "cuda"
@@ -118,15 +117,6 @@ def build_model(cfg: Settings) -> torch.nn.Module:
                           head_scale=cfg.head_scale, residual=cfg.residual)
 
 
-def _stream_seed(*parts: int) -> int:
-    """A generator seed for one batch of one stream, so that batch i of a
-    stream is the same whatever came before it."""
-    s = 0
-    for p in parts:
-        s = (s * 1_000_003 + p) % (2 ** 63 - 1)
-    return s
-
-
 def _batch(cfg: Settings, seed: int, h: int, w: int, disp: float) -> dict:
     from qpwcnet_torch.data import preprocess_flow_batch, synthetic_flow_batch
 
@@ -144,14 +134,14 @@ def _train(cfg: Settings, model, optimizer, l2_gamma: float, n_steps: int,
     from qpwcnet_torch.train import epe_error, make_flow_train_step
 
     step = make_flow_train_step(l2_gamma)
-    held = _batch(cfg, _stream_seed(cfg.seed + 999), h, w, disp)
+    held = _batch(cfg, stream_seed(cfg.seed + 999), h, w, disp)
     epe_zero = float(zero_baseline_epe(held["flo"]))
     sums = None
     since = 0
     t0 = time.time()
     m = {}
     for i in range(n_steps):
-        batch = _batch(cfg, _stream_seed(*stream, i), h, w, disp)
+        batch = _batch(cfg, stream_seed(*stream, i), h, w, disp)
         m = step(model, optimizer, batch)
         sums = m if sums is None else {k: sums[k] + m[k] for k in m}
         since += 1
@@ -203,7 +193,7 @@ def run(cfg: Settings):
         def calib_ims():
             for j in range(cfg.recalibrate_final):
                 gen = torch.Generator(device=cfg.device).manual_seed(
-                    _stream_seed(cfg.seed + 2, 1_000_000_000 + j))
+                    stream_seed(cfg.seed + 2, 1_000_000_000 + j))
                 ims_u8, _ = synthetic_flow_batch(
                     gen, cfg.batch_size, cfg.height, cfg.width,
                     max_disp=cfg.max_disp)

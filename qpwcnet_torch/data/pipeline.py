@@ -1,13 +1,18 @@
-"""Batch preprocessing (port of the no-augmentation path of
-qpwcnet_tpu/data/pipeline.py:preprocess_flow_batch).
+"""Batch preprocessing (port of qpwcnet_tpu/data/pipeline.py:
+``preprocess_flow_batch`` without augmentation, and
+``preprocess_triplet_batch``).
 
-Augmentation (``data/augment.py``) waits for ROADMAP queue-1 item 8.
+The flow augmentation (flips, scale-and-crop, colour) waits for ROADMAP
+queue-1 item 8; the triplet augmentation is ``data/augment.py``.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from qpwcnet_torch.data.augment import augment_triplet_batch
 from qpwcnet_torch.ops.resize import resize_bilinear
 
 
@@ -35,3 +40,16 @@ def preprocess_flow_batch(ims_u8: torch.Tensor, flo: torch.Tensor,
     ims, flo = _resize_pair(ims, flo.float(), tuple(out_hw))
     ims = ims - 0.5
     return {"ims": _nan_scrub(ims), "flo": _nan_scrub(flo)}
+
+
+def preprocess_triplet_batch(gen: Optional[torch.Generator],
+                             a_u8: torch.Tensor, b_u8: torch.Tensor,
+                             c_u8: torch.Tensor,
+                             augment: bool = True) -> dict:
+    """uint8 triplet (B, H, W, 3) x3 -> {'ims': concat[frame0, frame2] -
+    0.5, 'mid': frame1 - 0.5}, with the triplet-consistent augmentation
+    drawn from ``gen`` when ``augment`` (``gen`` may be None otherwise)."""
+    a, b, c = (t.float() * (1.0 / 255.0) for t in (a_u8, b_u8, c_u8))
+    if augment:
+        a, b, c = augment_triplet_batch(gen, a, b, c)
+    return {"ims": torch.cat([a, c], dim=-1) - 0.5, "mid": b - 0.5}

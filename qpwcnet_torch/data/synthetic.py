@@ -1,5 +1,5 @@
-"""Synthetic optical-flow task with non-uniform flow fields (port of
-qpwcnet_tpu/data/synthetic.py, flow half).
+"""Synthetic optical-flow and frame-interpolation tasks with non-uniform
+flow fields (port of qpwcnet_tpu/data/synthetic.py).
 
 flow(p) = affine(p) + a low-frequency perturbation(p): a random
 similarity transform (rotation, log-scale, shear, translation) about the
@@ -102,6 +102,48 @@ def synthetic_flow_batch(gen: torch.Generator, b: int, h: int, w: int,
     ims = torch.cat([prv_p[sl], nxt_p[sl]], dim=-1)
     ims_u8 = torch.clamp(torch.round(ims * 255.0), 0, 255).to(torch.uint8)
     return ims_u8, flo_p[sl].contiguous()
+
+
+def stream_seed(*parts: int) -> int:
+    """A generator seed for one batch of one stream, so that batch i of a
+    stream is the same whatever came before it."""
+    s = 0
+    for p in parts:
+        s = (s * 1_000_003 + p) % (2 ** 63 - 1)
+    return s
+
+
+def triplet_frames(nxt_p: torch.Tensor, flo_p: torch.Tensor, h: int,
+                   w: int, pad: int):
+    """The deterministic part of :func:`synthetic_triplet_batch`: from a
+    padded texture nxt_p (B, h+2pad, w+2pad, 3) and flow flo_p, the
+    uint8 frames (prv, mid, nxt), each (B, h, w, 3), with
+    prv = backward_warp(nxt, flo) and mid = backward_warp(nxt, flo / 2),
+    center-cropped by ``pad``."""
+    prv_p = backward_warp(nxt_p, flo_p)
+    mid_p = backward_warp(nxt_p, flo_p * 0.5)
+    sl = (slice(None), slice(pad, pad + h), slice(pad, pad + w))
+
+    def u8(x):
+        return torch.clamp(torch.round(x[sl] * 255.0), 0, 255).to(
+            torch.uint8)
+
+    return u8(prv_p), u8(mid_p), u8(nxt_p)
+
+
+@torch.no_grad()
+def synthetic_triplet_batch(gen: torch.Generator, b: int, h: int, w: int,
+                            max_disp: float = 24.0):
+    """One frame-interpolation pretraining triplet batch on ``gen``'s
+    device: (prv, mid, nxt) uint8 (B, H, W, 3) each, under
+    constant-velocity motion (flo the forward flow prv -> nxt, mid the
+    half-flow warp), with the same pad-and-crop as
+    :func:`synthetic_flow_batch`."""
+    pad = int(max_disp + 1)
+    hp, wp = h + 2 * pad, w + 2 * pad
+    nxt_p = random_texture(gen, b, hp, wp)
+    flo_p = random_flow_field(gen, b, hp, wp, max_disp=max_disp)
+    return triplet_frames(nxt_p, flo_p, h, w, pad)
 
 
 def zero_baseline_epe(flo: torch.Tensor) -> torch.Tensor:

@@ -2,6 +2,7 @@ from qpwcnet_torch.models.blocks import (
     BatchNorm,
     DownConv,
     FlowBlock,
+    FrameInterpolate,
     OptFlow,
     SepConv,
     UpConv,
@@ -13,7 +14,9 @@ from qpwcnet_torch.models.pwcnet import (
     Encoder,
     Flower,
     PWCFlowNet,
+    PWCInterpolator,
     build_flow_net,
+    build_interpolator,
 )
 
 __all__ = [
@@ -23,11 +26,14 @@ __all__ = [
     "UpConv",
     "OptFlow",
     "FlowBlock",
+    "FrameInterpolate",
     "UpFlowBlock",
     "Encoder",
     "Decoder",
     "Flower",
     "PWCFlowNet",
+    "PWCInterpolator",
     "build_flow_net",
+    "build_interpolator",
     "load_flax_variables",
 ]

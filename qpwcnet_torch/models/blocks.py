@@ -69,6 +69,11 @@ class UpConv(nn.Module):
         super().__init__()
         self.conv_up = QConvTranspose(in_ch, features, dtype=dtype, act=mish)
 
+    def params(self) -> list[tuple[torch.Tensor, torch.Tensor]]:
+        """[(weight, bias)] of conv_up (the fused upconv kernel's
+        argument)."""
+        return [(self.conv_up.weight, self.conv_up.bias)]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv_up(x)
 
@@ -189,3 +194,36 @@ class UpFlowBlock(nn.Module):
         if self.residual:
             out = out + flo.to(out.dtype)
         return out
+
+
+class FrameInterpolate(nn.Module):
+    """Middle-frame synthesis head: warp nxt by 0.5·flo_01 and prv by
+    0.5·flo_10 (float32 flows), concat [prv_w, nxt_w, flo_01, flo_10
+    (, img_u under ``up``)], SepConv(64, Mish) -> 1x1 QConv to 3 channels;
+    float32 output.
+
+    in_ch: channels of prv and nxt (3 for the images of the coarsest
+    head, the decoder feature's channels for the up heads)."""
+
+    def __init__(self, in_ch: int, up: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.up = up
+        self.conv1 = SepConv(2 * in_ch + 4 + (3 if up else 0), 64,
+                             dtype=dtype)
+        self.conv2 = QConv(64, 3, 1, dtype=dtype)
+
+    def forward(self, prv: torch.Tensor, nxt: torch.Tensor,
+                flo_01: torch.Tensor, flo_10: torch.Tensor,
+                img_u: torch.Tensor | None = None) -> torch.Tensor:
+        flo_01f, flo_10f = flo_01.float(), flo_10.float()
+        nxt_w = backward_warp(nhwc(nxt), 0.5 * nhwc(flo_01f).contiguous())
+        prv_w = backward_warp(nhwc(prv), 0.5 * nhwc(flo_10f).contiguous())
+        feats = [nchw(prv_w), nchw(nxt_w), flo_01f.to(prv.dtype),
+                 flo_10f.to(prv.dtype)]
+        if self.up:
+            if img_u is None:
+                raise ValueError("an up FrameInterpolate needs img_u")
+            feats.append(img_u.to(prv.dtype))
+        x = self.conv2(self.conv1(cat_channels(feats)))
+        return x.float()

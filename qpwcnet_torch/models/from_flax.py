@@ -1,12 +1,14 @@
-"""Load the JAX package's Flax variables into a PWCFlowNet.
+"""Load the JAX package's Flax variables into a PWCFlowNet or a
+PWCInterpolator.
 
 ``load_flax_variables(model, variables)`` takes the ``{'params',
-'batch_stats'}`` tree of ``qpwcnet_tpu.models.build_flow_net`` as nested
-dicts of numpy arrays (``jax.device_get`` of it) and copies every leaf
-into the model by name:
+'batch_stats'}`` tree of ``qpwcnet_tpu.models.build_flow_net`` or
+``build_interpolator`` as nested dicts of numpy arrays
+(``jax.device_get`` of it) and copies every leaf into the model by name:
 
-  * ``stage_i`` / ``upflow_i`` / ``of_feat_i`` -> ``stages.i`` /
-    ``upflows.i`` / ``of_feats.i``; every other name is the same;
+  * ``stage_i`` / ``upflow_i`` / ``of_feat_i`` / ``img_i`` ->
+    ``stages.i`` / ``upflows.i`` / ``of_feats.i`` / ``imgs.i``; every
+    other name is the same;
   * conv kernels HWIO -> OIHW, depthwise (3, 3, 1, C) -> (C, 1, 3, 3)
     (the same permutation), transpose-conv kernels (``conv_up``) flipped
     spatially and HWIO -> (I, O, kh, kw);
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-_INDEXED = re.compile(r"^(stage|upflow|of_feat)_(\d+)$")
+_INDEXED = re.compile(r"^(stage|upflow|of_feat|img)_(\d+)$")
 _LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight",
          "mean": "running_mean", "var": "running_var"}
 
@@ -96,7 +98,7 @@ def _flax_path(model: nn.Module, key: str) -> tuple[str, ...]:
     path = []
     for p in mods:
         if p.isdigit() and path and path[-1] in ("stages", "upflows",
-                                                 "of_feats"):
+                                                 "of_feats", "imgs"):
             path[-1] = f"{path[-1][:-1]}_{p}"
         else:
             path.append(p)

@@ -1,10 +1,11 @@
-"""PWC-Net flow model (port of the flow half of
-qpwcnet_tpu/models/pwcnet.py): Encoder, Decoder, Flower, PWCFlowNet and
-build_flow_net.
+"""PWC-Net-family models (port of qpwcnet_tpu/models/pwcnet.py):
+Encoder, Decoder, Flower, PWCFlowNet, PWCInterpolator, build_flow_net and
+build_interpolator.
 
-``PWCFlowNet.forward`` keeps JAX's NHWC boundary: (B, H, W, 6) in, the
-final (B, H, W, 2) float32 flow out (or the 6 multiscale flows, coarse
-to fine, with ``multiscale=True``). Inside, tensors are logical NCHW in
+``forward`` keeps JAX's NHWC boundary: (B, H, W, 6) in, the final
+(B, H, W, 2) float32 flow (PWCFlowNet) or (B, H, W, 3) float32 middle
+frame (PWCInterpolator) out, or the 6 multiscale outputs, coarse to
+fine, with ``multiscale=True``. Inside, tensors are logical NCHW in
 channels_last memory (qpwcnet_torch/layout.py).
 """
 
@@ -21,6 +22,7 @@ from qpwcnet_torch.models.blocks import (
     BatchNorm,
     DownConv,
     FlowBlock,
+    FrameInterpolate,
     UpConv,
     UpFlowBlock,
 )
@@ -28,7 +30,11 @@ from qpwcnet_torch.ops.cuda.stem_kernel import (
     STEM_CHANNELS,
     downconv_stage_trainable,
 )
-from qpwcnet_torch.ops.resize import upsample2x_bilinear_nchw
+from qpwcnet_torch.ops.cuda.upconv_kernel import (
+    UPCONV_CHANNELS,
+    upconv_stage_trainable,
+)
+from qpwcnet_torch.ops.resize import avg_pool_2x, upsample2x_bilinear_nchw
 from qpwcnet_torch.quantize.qlayers import QConv, QConvTranspose
 
 ENCODER_FILTERS = (16, 32, 64, 128, 256)
@@ -76,12 +82,25 @@ class Encoder(nn.Module):
 
 class Decoder(nn.Module):
     """4 UpConv stages with skip-concat [up, enc] against the encoder
-    feature of matching scale."""
+    feature of matching scale.
+
+    The last ``upconv_stages`` stages run as one fused CUDA kernel each
+    (ops/cuda/upconv_kernel.py), reading the same parameters as the
+    UpConv modules, with the unfused composition's gradients; on CPU
+    tensors the forward is the unfused composition too.
+    """
 
     def __init__(self, filters: Sequence[int] = DECODER_FILTERS,
                  enc_filters: Sequence[int] = ENCODER_FILTERS,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, upconv_stages: int = 0):
         super().__init__()
+        if any(f not in UPCONV_CHANNELS
+               for f in filters[len(filters) - upconv_stages:]):
+            raise ValueError(
+                f"upconv_stages={upconv_stages}: the fused upconv kernel "
+                f"takes stages with {UPCONV_CHANNELS} output channels")
+        self.dtype = dtype
+        self.upconv_stages = upconv_stages
         stages = []
         c = enc_filters[-1]
         for k, f in enumerate(filters):
@@ -92,8 +111,14 @@ class Decoder(nn.Module):
     def forward(self, encs: list[torch.Tensor]) -> list[torch.Tensor]:
         f = encs[-1]
         decs = []
+        n = len(self.stages)
         for k, stage in enumerate(self.stages):
-            f = stage(f)
+            if n - k <= self.upconv_stages:
+                f = nchw(upconv_stage_trainable(
+                    nhwc(f.to(self.dtype)).contiguous(), stage.params(),
+                    self.dtype))
+            else:
+                f = stage(f)
             f = cat_channels([f, encs[-2 - k].to(f.dtype)])
             decs.append(f)
         return decs
@@ -161,11 +186,11 @@ class PWCFlowNet(nn.Module):
     def __init__(self, dtype: torch.dtype = torch.float32,
                  cv_impl: CvImpl = "auto", head_scale: str = "diag",
                  residual: bool = False, stem_stages: int = 0,
-                 fuse_batch: bool = True):
+                 fuse_batch: bool = True, upconv_stages: int = 0):
         super().__init__()
         self.fuse_batch = fuse_batch
         self.encoder = Encoder(dtype=dtype, stem_stages=stem_stages)
-        self.decoder = Decoder(dtype=dtype)
+        self.decoder = Decoder(dtype=dtype, upconv_stages=upconv_stages)
         self.flower = Flower(dtype=dtype, cv_impl=cv_impl,
                              head_scale=head_scale, residual=residual)
 
@@ -191,6 +216,96 @@ class PWCFlowNet(nn.Module):
         return flos if multiscale else flos[-1]
 
 
+class PWCInterpolator(nn.Module):
+    """The frame-interpolation model: the shared encoder and decoder, ONE
+    Flower run in both directions, and the FrameInterpolate heads img_0
+    (on the coarsest avg-pool image level) and img_1..img_4 (on the
+    decoder features).
+
+    forward(inputs (B, H, W, 6)) -> the final (B, H, W, 3) float32
+    middle frame, or with multiscale=True the list of 6 images at
+    1/32..1/1 (the JAX model's train=True output); return_flows=True
+    also returns (flos_01, flos_10), the 6 multiscale flows of each
+    direction, NHWC float32.
+
+    fuse_batch=True runs the encoder and decoder once on the 2B stack
+    [prv; nxt] and the Flower once on the 2B stack of both directions
+    (rows [:B] flos_01 with the (nxt, prv) argument order, rows [B:]
+    flos_10 with (prv, nxt)). That is exact in eval mode; in train mode
+    the flow heads' BatchNorm statistics are taken over the joint 2B
+    direction batch instead of per direction, as in the JAX model.
+    """
+
+    def __init__(self, dtype: torch.dtype = torch.float32,
+                 cv_impl: CvImpl = "auto", head_scale: str = "diag",
+                 residual: bool = False, stem_stages: int = 0,
+                 fuse_batch: bool = True, upconv_stages: int = 0):
+        super().__init__()
+        self.fuse_batch = fuse_batch
+        self.encoder = Encoder(dtype=dtype, stem_stages=stem_stages)
+        self.decoder = Decoder(dtype=dtype, upconv_stages=upconv_stages)
+        self.flower = Flower(dtype=dtype, cv_impl=cv_impl,
+                             head_scale=head_scale, residual=residual)
+        dec_ch = [f + e for f, e in zip(DECODER_FILTERS,
+                                        ENCODER_FILTERS[-2::-1])]
+        self.imgs = nn.ModuleList(
+            [FrameInterpolate(3, up=False, dtype=dtype)]
+            + [FrameInterpolate(c, up=True, dtype=dtype) for c in dec_ch])
+
+    def forward(self, inputs: torch.Tensor, multiscale: bool = False,
+                return_flows: bool = False):
+        x = nchw(inputs)
+        img_prv = x[:, :3].contiguous(memory_format=CHANNELS_LAST)
+        img_nxt = x[:, 3:].contiguous(memory_format=CHANNELS_LAST)
+        if self.fuse_batch:
+            b = img_prv.shape[0]
+            encs = self.encoder(torch.cat([img_prv, img_nxt], dim=0))
+            decs = self.decoder(encs)
+            decs_prv = [d[:b] for d in decs]
+            decs_nxt = [d[b:] for d in decs]
+
+            def swap(t):
+                return torch.cat([t[b:], t[:b]], dim=0)
+
+            flos = self.flower(swap(encs[-1]), encs[-1],
+                               [swap(d) for d in decs], decs)
+            flos_01 = [f[:b] for f in flos]
+            flos_10 = [f[b:] for f in flos]
+        else:
+            encs_prv = self.encoder(img_prv)
+            encs_nxt = self.encoder(img_nxt)
+            decs_prv = self.decoder(encs_prv)
+            decs_nxt = self.decoder(encs_nxt)
+            # the reference's argument orders
+            flos_01 = self.flower(encs_nxt[-1], encs_prv[-1], decs_nxt,
+                                  decs_prv)
+            flos_10 = self.flower(encs_prv[-1], encs_nxt[-1], decs_prv,
+                                  decs_nxt)
+
+        # Avg-pool image pyramid, n+1 levels deep: only its coarsest level
+        # feeds img_0; the up heads are fed decoder features, as in the
+        # reference.
+        pyr_prv, pyr_nxt = inputs[..., :3], inputs[..., 3:]
+        for _ in range(len(DECODER_FILTERS) + 1):
+            pyr_prv, pyr_nxt = avg_pool_2x(pyr_prv), avg_pool_2x(pyr_nxt)
+        img = self.imgs[0](nchw(pyr_prv), nchw(pyr_nxt), flos_01[0],
+                           flos_10[0])
+        imgs = [img]
+        for i, head in enumerate(self.imgs[1:]):
+            img_u = upsample2x_bilinear_nchw(img, scale=1.0)
+            img = head(decs_prv[i], decs_nxt[i], flos_01[i + 1],
+                       flos_10[i + 1], img_u)
+            imgs.append(img)
+        imgs.append(upsample2x_bilinear_nchw(img, scale=1.0))
+
+        imgs = [nhwc(im.float()).contiguous() for im in imgs]
+        out = imgs if multiscale else imgs[-1]
+        if return_flows:
+            return out, tuple([nhwc(f.float()).contiguous() for f in fl]
+                              for fl in (flos_01, flos_10))
+        return out
+
+
 def _lecun_normal_(w: torch.Tensor, fan_in: int,
                    gen: torch.Generator) -> None:
     """Flax lecun_normal: truncated normal in [-2, 2] std-units, scaled to
@@ -201,11 +316,11 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int,
                               generator=gen)
 
 
-def init_weights(model: PWCFlowNet, seed: int, head_scale: str) -> None:
-    """The init schemes of the JAX build_flow_net, from a torch.Generator:
-    lecun-normal kernels, zero biases, BatchNorm scale 1 / bias 0 /
-    mean 0 / var 1, and the of_flow kernel zero under 'diag' or
-    normal(0.01) under 'unit'."""
+def init_weights(model: nn.Module, seed: int, head_scale: str) -> None:
+    """The init schemes of the JAX build functions, from a
+    torch.Generator: lecun-normal kernels (the img_* heads' too), zero
+    biases, BatchNorm scale 1 / bias 0 / mean 0 / var 1, and the of_flow
+    kernel zero under 'diag' or normal(0.01) under 'unit'."""
     gen = torch.Generator().manual_seed(seed)
     for name, m in model.named_modules():
         if isinstance(m, QConv):
@@ -229,15 +344,37 @@ def init_weights(model: PWCFlowNet, seed: int, head_scale: str) -> None:
                 m.running_var.fill_(1.0)
 
 
-def build_flow_net(seed: int = 0, device: Union[str, torch.device] = "cpu",
+def build_flow_net(seed: int = 0, device: Union[str, torch.device] = "cuda",
                    dtype: torch.dtype = torch.float32,
                    cv_impl: CvImpl = "auto", stem_stages: int = 0,
                    head_scale: str = "diag", residual: bool = False,
-                   fuse_batch: bool = True) -> PWCFlowNet:
-    """Construct a PWCFlowNet on ``device`` with float32 parameters drawn
-    from ``seed``, computing in ``dtype``; returned in eval mode."""
+                   fuse_batch: bool = True,
+                   upconv_stages: int = 0) -> PWCFlowNet:
+    """Construct a PWCFlowNet on ``device`` (the card unless the caller
+    asks for the CPU) with float32 parameters drawn from ``seed``,
+    computing in ``dtype``; returned in eval mode."""
     model = PWCFlowNet(dtype=dtype, cv_impl=cv_impl, head_scale=head_scale,
                        residual=residual, stem_stages=stem_stages,
-                       fuse_batch=fuse_batch)
+                       fuse_batch=fuse_batch, upconv_stages=upconv_stages)
+    init_weights(model, seed, head_scale)
+    return model.to(device).eval()
+
+
+def build_interpolator(seed: int = 0,
+                       device: Union[str, torch.device] = "cuda",
+                       dtype: torch.dtype = torch.float32,
+                       cv_impl: CvImpl = "auto", head_scale: str = "diag",
+                       residual: bool = False, fuse_batch: bool = True,
+                       stem_stages: int = 0,
+                       upconv_stages: int = 0) -> PWCInterpolator:
+    """Construct a PWCInterpolator on ``device`` (the card unless the
+    caller asks for the CPU) with float32 parameters drawn from ``seed``,
+    computing in ``dtype``; returned in eval mode. (JAX's
+    build_interpolator has no ``upconv_stages``; its module has the
+    field.)"""
+    model = PWCInterpolator(dtype=dtype, cv_impl=cv_impl,
+                            head_scale=head_scale, residual=residual,
+                            stem_stages=stem_stages, fuse_batch=fuse_batch,
+                            upconv_stages=upconv_stages)
     init_weights(model, seed, head_scale)
     return model.to(device).eval()

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Every ``qpwcnet_torch/csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``
-into ONE shared library with a plain C interface, at first use, and
+Every ``qpwcnet_torch/csrc/*.cu`` is compiled by its own ``nvcc`` for
+``sm_90a`` (all started together) and linked into ONE shared library
+with a plain C interface, at first use, and
 loaded with ``ctypes``. The library lives in ``build/qpwcnet_torch/``
 beside the package (listed in .gitignore), under a name keyed by the
 sources' content, so an edited source rebuilds and an unchanged one is
@@ -43,6 +44,8 @@ SIGNATURES = {
     # x, w1, b1, w2, b2, w3, b3, out, B, H, W, Cin, Cout, dtype, stream
     "qpw_downconv_stage": [_P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _P],
+    # x, w, bias, out, B, H, W, Ci, Co, dtype, stream
+    "qpw_upconv_stage": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -77,22 +80,41 @@ def build() -> Path:
     so a concurrent or interrupted build never leaves a partial file.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = BUILD_DIR / f"libqpwcnet_kernels_{_digest()}.so"
+    digest = _digest()
+    lib = BUILD_DIR / f"libqpwcnet_kernels_{digest}.so"
     if lib.exists():
         return lib
-    tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
+    tag = f"{digest}.tmp{os.getpid()}"
+    # One nvcc per source, all started together, then one link.
     # -fmad=false: no implicit a*b+c contraction, so elementwise math
     # rounds as eager PyTorch does; the sums use fmaf explicitly.
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false",
-           "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-I", str(CSRC_DIR),
-           "-o", str(tmp), *map(str, _sources())]
+    jobs = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{src.stem}_{tag}.o"
+        cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false",
+               "-c", "-Xcompiler", "-fPIC", "-lineinfo", "-I", str(CSRC_DIR),
+               "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    done = [(cmd, proc.communicate(), proc.returncode)
+            for cmd, _, proc in jobs]
+    for cmd, (out, err), rc in done:
+        _require_ok(rc, cmd, out, err)
+    objs = [str(obj) for _, obj, _ in jobs]
+    tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
+    cmd = [_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp), *objs]
     res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}")
+    _require_ok(res.returncode, cmd, res.stdout, res.stderr)
+    for o in objs:
+        os.remove(o)
     os.replace(tmp, lib)
     return lib
+
+
+def _require_ok(rc: int, cmd: list[str], out: str, err: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}\n"
+                           f"{err}")
 
 
 def library() -> ctypes.CDLL:

@@ -1,14 +1,19 @@
 from qpwcnet_torch.train.agc import adaptive_clip_grads, zero_nan_grads
+from qpwcnet_torch.train.checkpoint import transfer_params
 from qpwcnet_torch.train.losses import (
+    auto_resize_mse_loss,
     epe_error,
     flow_loss_v2,
     l2_regularization,
     multiscale_flow_loss,
+    multiscale_interp_loss,
 )
 from qpwcnet_torch.train.train_state import (
     GradientChain,
+    create_interp_train_state,
     default_optimizer,
     make_flow_train_step,
+    make_interp_train_step,
     plain_optimizer,
     recalibrate_batch_stats,
 )
@@ -16,13 +21,18 @@ from qpwcnet_torch.train.train_state import (
 __all__ = [
     "adaptive_clip_grads",
     "zero_nan_grads",
+    "auto_resize_mse_loss",
     "epe_error",
     "flow_loss_v2",
     "l2_regularization",
     "multiscale_flow_loss",
+    "multiscale_interp_loss",
     "GradientChain",
     "default_optimizer",
     "plain_optimizer",
+    "create_interp_train_state",
     "make_flow_train_step",
+    "make_interp_train_step",
     "recalibrate_batch_stats",
+    "transfer_params",
 ]

@@ -1,4 +1,4 @@
-"""Training losses (port of the flow losses of
+"""Training losses (port of the flow and pretraining losses of
 qpwcnet_tpu/train/losses.py).
 
 All NHWC, flow in (x, y) channel order:
@@ -7,6 +7,9 @@ All NHWC, flow in (x, y) channel order:
     of the GT flow by exact integer factors, magnitude scaled by
     pred_h/true_h, then Huber(delta=0.1) on flow scaled by 2/(w+h), summed
     over the multiscale predictions except the final bilinear-only one.
+  * :func:`multiscale_interp_loss` — AutoResizeMseLoss (bilinear resize
+    of the GT image to each prediction's scale, plain MSE), summed over
+    ALL interpolator outputs, with the per-scale img_i_loss values.
   * :func:`epe_error` — the end-point-error metric.
   * :func:`l2_regularization` — gamma * sum(kernel**2) over the DownConv
     and UpConv kernels (the Keras l2 regularizers).
@@ -19,7 +22,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from qpwcnet_torch.ops.resize import block_mean_downsample
+from qpwcnet_torch.ops.resize import block_mean_downsample, resize_bilinear
 
 # Modules whose kernels carry the Keras l2 regularizer (DownConv, UpConv).
 L2_MODULES = ("conv_a", "conv_aa", "conv_b", "conv_up")
@@ -53,6 +56,25 @@ def multiscale_flow_loss(flo_true: torch.Tensor,
     """Sum of FlowMseLossV2 over all scales except the final
     bilinear-only output."""
     return sum(flow_loss_v2(flo_true, p, delta) for p in flo_preds[:-1])
+
+
+def auto_resize_mse_loss(img_true: torch.Tensor,
+                         img_pred: torch.Tensor) -> torch.Tensor:
+    """AutoResizeMseLoss: resize the GT image to the prediction's scale
+    (bilinear, antialiased when downsampling), plain MSE."""
+    ph, pw = img_pred.shape[1], img_pred.shape[2]
+    true_down = resize_bilinear(img_true, (ph, pw))
+    return torch.mean(torch.square(true_down - img_pred))
+
+
+def multiscale_interp_loss(img_true: torch.Tensor,
+                           img_preds: Sequence[torch.Tensor]
+                           ) -> tuple[torch.Tensor, dict]:
+    """Sum of :func:`auto_resize_mse_loss` over ALL interpolator outputs,
+    and the per-scale values as {'img_i_loss': ...}."""
+    per_scale = {f"img_{i}_loss": auto_resize_mse_loss(img_true, p)
+                 for i, p in enumerate(img_preds)}
+    return sum(per_scale.values()), per_scale
 
 
 def epe_error(flo_true: torch.Tensor, flo_pred: torch.Tensor) -> torch.Tensor:

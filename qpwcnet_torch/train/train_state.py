@@ -1,5 +1,5 @@
-"""The supervised flow training step (port of
-qpwcnet_tpu/train/train_state.py, flow half).
+"""The training steps (port of qpwcnet_tpu/train/train_state.py): the
+supervised flow step and the frame-interpolation pretraining step.
 
 The JAX TrainState pytree becomes the model itself (parameters and
 BatchNorm running statistics) and a :class:`GradientChain`, the optax
@@ -18,6 +18,7 @@ from qpwcnet_torch.train.losses import (
     epe_error,
     l2_regularization,
     multiscale_flow_loss,
+    multiscale_interp_loss,
 )
 
 
@@ -60,6 +61,12 @@ def plain_optimizer(model: nn.Module, learning_rate: float) -> GradientChain:
     return GradientChain(model, learning_rate)
 
 
+# The JAX package's state constructor for the pretraining step: here the
+# model holds the parameters and BatchNorm statistics, and the default
+# chain over it is the rest of the state.
+create_interp_train_state = default_optimizer
+
+
 def make_flow_train_step(l2_gamma: float = 4e-6) -> Callable:
     """Supervised-flow train step ``step(model, optimizer, batch)``.
 
@@ -82,6 +89,33 @@ def make_flow_train_step(l2_gamma: float = 4e-6) -> Callable:
         with torch.no_grad():
             epe = epe_error(batch["flo"], outs[-1])
         return {"loss": loss.detach(), "epe": epe}
+
+    return train_step
+
+
+def make_interp_train_step(l2_gamma: float = 4e-6) -> Callable:
+    """Frame-interpolation pretraining step ``step(model, optimizer,
+    batch)``.
+
+    batch = {'ims': (B, H, W, 6) frames 0 and 2, 'mid': (B, H, W, 3)
+    frame 1}, both in [-0.5, 0.5]. Runs the model in train mode,
+    backpropagates the multiscale interpolation loss over ALL 6 outputs
+    plus the kernel l2 term, and steps the optimizer. Returns {'loss',
+    'img_0_loss', ..., 'img_5_loss'} as 0-d tensors on the model's
+    device.
+    """
+
+    def train_step(model: nn.Module, optimizer: GradientChain,
+                   batch: dict) -> dict:
+        model.train()
+        optimizer.zero_grad()
+        outs = model(batch["ims"], multiscale=True)
+        loss, per_scale = multiscale_interp_loss(batch["mid"], outs)
+        loss = loss + l2_regularization(model, l2_gamma)
+        loss.backward()
+        optimizer.step()
+        return {"loss": loss.detach(),
+                **{k: v.detach() for k, v in per_scale.items()}}
 
     return train_step
 

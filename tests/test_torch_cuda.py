@@ -10,14 +10,15 @@ only PyTorch is installed (tests/conftest.py imports jax, hence
 Shapes are small and not multiples of the kernels' tiles; chip_smoke.py
 checks the headline shapes. Tolerances: float32 sums in another order,
 1e-5 of the output magnitude; bf16 outputs, one bf16 ulp (2^-7) of it,
-four for the stem, where an early rounding flip propagates.
+four for the stem, where an early rounding flip propagates, and two for
+the upconv stage, where it moves the bias add's and Mish's roundings.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from qpwcnet_torch.models import build_flow_net
+from qpwcnet_torch.models import build_flow_net, build_interpolator
 from qpwcnet_torch.ops import cuda as kernels
 from qpwcnet_torch.ops.cost_volume import (
     CostVolumeFunction,
@@ -35,6 +36,11 @@ from qpwcnet_torch.ops.cuda.stem_kernel import (
     downconv_stage_cuda,
     downconv_stage_plain,
     downconv_stage_trainable,
+)
+from qpwcnet_torch.ops.cuda.upconv_kernel import (
+    upconv_stage_cuda,
+    upconv_stage_plain,
+    upconv_stage_trainable,
 )
 from qpwcnet_torch.ops.cuda.warp_cv_kernel import (
     warp_cost_volume_cuda,
@@ -154,7 +160,7 @@ def test_cost_volume_function_grads_match_plain_autograd(dev):
     assert kernels.launch_counts() == {
         "cost_volume_cuda": 1, "downconv_stage_cuda": 0,
         "warp_cost_volume_cuda": 0, "cost_volume_bwd_prv_cuda": 1,
-        "cost_volume_bwd_nxt_cuda": 1}
+        "cost_volume_bwd_nxt_cuda": 1, "upconv_stage_cuda": 0}
     _assert_close(leaves[0].grad, leaves[2].grad)
     _assert_close(leaves[1].grad, leaves[3].grad)
 
@@ -205,3 +211,79 @@ def test_wrappers_validate_inputs(dev):
         cost_volume_bwd_prv_cuda(dacc[..., :49].contiguous(), prv)
     with pytest.raises(ValueError):
         cost_volume_bwd_nxt_cuda(dacc.bfloat16(), prv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cout", [((2, 13, 37, 128), 32),
+                                        ((1, 9, 70, 20), 16)])
+def test_upconv_stage_kernel(dev, dtype, shape, cout):
+    """K5 against its plain version; Ci = 20 leaves a ragged channel
+    chunk, W = 70 a ragged column tile."""
+    rng = np.random.RandomState(7)
+    x = _rand(rng, shape, dev, dtype)
+    w = _rand(rng, (shape[-1], cout, 4, 4), dev, scale=(4 * shape[-1]) ** -0.5)
+    b = _rand(rng, (cout,), dev, scale=0.1)
+    kernels.reset_launch_counts()
+    got = upconv_stage_cuda(x, w, b, dtype)
+    want = upconv_stage_plain(x, w, b, dtype)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (shape[0], 2 * shape[1],
+                                       2 * shape[2], cout)
+    err = float((got.float() - want.float()).abs().max())
+    ulps = 2 if dtype == torch.bfloat16 else 1
+    assert err <= ulps * REL[dtype] * max(1.0,
+                                          float(want.float().abs().max()))
+    assert upconv_stage_cuda.launches == 1
+
+
+@pytest.mark.cuda
+def test_upconv_trainable_grads_match_plain_autograd(dev):
+    rng = np.random.RandomState(8)
+    x = _rand(rng, (2, 11, 19, 64), dev)
+    w = _rand(rng, (64, 16, 4, 4), dev, scale=1 / 16)
+    b = _rand(rng, (16,), dev, scale=0.1)
+    g = _rand(rng, (2, 22, 38, 16), dev)
+    leaves = [t.clone().requires_grad_() for t in (x, w, b, x, w, b)]
+    kernels.reset_launch_counts()
+    upconv_stage_trainable(leaves[0], [tuple(leaves[1:3])],
+                           torch.float32).backward(g)
+    upconv_stage_plain(*leaves[3:], torch.float32).backward(g)
+    assert upconv_stage_cuda.launches == 1
+    for i in range(3):
+        _assert_close(leaves[i].grad, leaves[i + 3].grad)
+
+
+@pytest.mark.cuda
+def test_interpolator_launches_each_kernel(dev):
+    """One eval forward of the interpolator with the fused stem and
+    upconv stages: 5 cost volumes (the 2B Flower pass), 2 stem stages,
+    2 upconv stages; finite images of the input's size."""
+    model = build_interpolator(0, dev, stem_stages=2, upconv_stages=2)
+    rng = np.random.RandomState(9)
+    ims = _rand(rng, (2, 64, 128, 6), dev, scale=0.3)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        img = model(ims)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["cost_volume_cuda"], counts["downconv_stage_cuda"],
+            counts["upconv_stage_cuda"]) == (5, 2, 2), counts
+    assert img.shape == (2, 64, 128, 3) and bool(torch.isfinite(img).all())
+
+
+@pytest.mark.cuda
+def test_upconv_wrapper_validates_inputs(dev):
+    rng = np.random.RandomState(10)
+    x = _rand(rng, (1, 8, 16, 24), dev)
+    w = _rand(rng, (24, 16, 4, 4), dev)
+    b = _rand(rng, (16,), dev)
+    with pytest.raises(ValueError):
+        upconv_stage_cuda(x, w[:, :8].contiguous(), b[:8].contiguous(),
+                          torch.float32)
+    with pytest.raises(ValueError):
+        upconv_stage_cuda(x, w, b, torch.bfloat16)
+    with pytest.raises(ValueError):
+        upconv_stage_cuda(x.transpose(1, 2), w, b, torch.float32)
+    with pytest.raises(ValueError):
+        upconv_stage_cuda(x, w[:16].contiguous(), b, torch.float32)

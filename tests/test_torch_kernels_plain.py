@@ -33,6 +33,10 @@ from qpwcnet_torch.ops.cuda.stem_kernel import (
     downconv_stage_plain,
 )
 from qpwcnet_torch.ops.cuda.cost_volume_kernel import cost_volume_cuda
+from qpwcnet_torch.ops.cuda.upconv_kernel import (
+    upconv_stage_cuda,
+    upconv_stage_plain,
+)
 from qpwcnet_torch.ops.cuda.warp_cv_kernel import (
     FUSED_WARP_WINDOW,
     warp_cost_volume_cuda,
@@ -135,15 +139,19 @@ def test_cpu_tensors_take_the_plain_versions():
     _, _, x, params = _stage(8, 12, 3, 16, seed=1)
     assert torch.equal(downconv_stage_cuda(_t(x), params, torch.float32),
                        downconv_stage_plain(_t(x), params, torch.float32))
+    up = (_t(rng.standard_normal((1, 4, 6, 8))),
+          _t(rng.standard_normal((8, 16, 4, 4))), _t(rng.standard_normal(16)))
+    assert torch.equal(upconv_stage_cuda(*up, torch.float32),
+                       upconv_stage_plain(*up, torch.float32))
     model = build_flow_net(0, "cpu", cv_impl="fast", stem_stages=2,
-                           head_scale="unit").train()
+                           upconv_stages=2, head_scale="unit").train()
     outs = model(_t(rng.uniform(-0.5, 0.5, (1, 64, 64, 6))),
                  multiscale=True)
     sum(o.square().mean() for o in outs[:-1]).backward()
     assert kernels.launch_counts() == {
         "cost_volume_cuda": 0, "downconv_stage_cuda": 0,
         "warp_cost_volume_cuda": 0, "cost_volume_bwd_prv_cuda": 0,
-        "cost_volume_bwd_nxt_cuda": 0}
+        "cost_volume_bwd_nxt_cuda": 0, "upconv_stage_cuda": 0}
 
 
 def test_stem_rejects_odd_sizes():

@@ -9,6 +9,7 @@ pixels with some beyond ±4 at the finest level, and loads the same tree
 into both models.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -189,18 +190,98 @@ def test_fast_preset_fuses_only_the_finest_level():
         ["auto", "auto", "auto", "fused"]
 
 
-def test_port_imports_no_jax():
-    """The port package, its models, training, data and apps import
-    neither jax nor the JAX package."""
+FORBIDDEN = ("jax", "jaxlib", "flax", "qpwcnet_tpu")
+
+
+def _forbidden_imports(path: Path) -> list[str]:
+    """Every import of a forbidden top-level package in one file, at any
+    depth (inside functions too)."""
+    bad = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad += [f"{path}:{node.lineno} {n}" for n in names
+                if n.split(".")[0] in FORBIDDEN]
+    return bad
+
+
+@pytest.mark.parametrize("check", ["static", "subprocess"])
+def test_port_imports_no_jax(check):
+    """The port package, chip_smoke.py and every module they hold import
+    neither jax nor the JAX package: statically, every ``import`` and
+    ``from`` in every file (including imports inside functions, which run
+    only on some paths); and at run time, the modules imported in a fresh
+    interpreter."""
+    root = Path(__file__).resolve().parents[1]
+    if check == "static":
+        files = sorted((root / "qpwcnet_torch").rglob("*.py"))
+        assert len(files) > 40
+        bad = [b for f in files + [root / "chip_smoke.py"]
+               for b in _forbidden_imports(f)]
+        assert not bad, bad
+        return
     code = ("import sys, qpwcnet_torch, qpwcnet_torch.models, "
             "qpwcnet_torch.apps.infer, qpwcnet_torch.ops.cuda, "
             "qpwcnet_torch.train, qpwcnet_torch.data, "
-            "qpwcnet_torch.apps.train_flow; "
+            "qpwcnet_torch.data.sintel, qpwcnet_torch.apps.train_flow, "
+            "qpwcnet_torch.apps.pretrain_interp, "
+            "qpwcnet_torch.apps.interp_infer; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'qpwcnet_tpu')]; "
+            f"{FORBIDDEN!r}]; "
             "assert not bad, bad")
-    root = Path(__file__).resolve().parents[1]
     env = {**os.environ, "PYTHONPATH": str(root)}
     res = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
+
+
+def test_sintel_reader_matches_jax(tmp_path):
+    """The port's own copy of the Sintel TFRecord reader (which the infer
+    app's --data sintel uses) reads a shard written by the JAX package's
+    writer as the JAX reader does."""
+    from qpwcnet_torch.data.flo_format import read_flo, write_flo
+    from qpwcnet_torch.data.sintel import sintel_tfrecord_iterator
+    from qpwcnet_tpu.data.flo_format import read_flo as j_read_flo
+    from qpwcnet_tpu.data.sintel import (
+        sintel_tfrecord_iterator as j_iterator,
+    )
+    from qpwcnet_tpu.data.tfrecord import make_sintel_example, write_tfrecord
+
+    from qpwcnet_torch.vis import write_png
+
+    rng = np.random.RandomState(0)
+    records = []
+    for i in range(2):
+        pngs = []
+        for j in range(2):
+            write_png(tmp_path / f"{i}{j}.png",
+                      rng.randint(0, 256, (6, 10, 3)).astype(np.uint8))
+            pngs.append((tmp_path / f"{i}{j}.png").read_bytes())
+        flo = rng.uniform(-5, 5, (6, 10, 2)).astype(np.float32)
+        records.append(make_sintel_example(*pngs, flo))
+    shard = tmp_path / "sintel-00-of-01.tfrecord"
+    assert write_tfrecord(shard, records) == 2
+    # an absolute glob for the port's reader, the path list for JAX's
+    # (whose Path().glob refuses absolute patterns)
+    got = list(sintel_tfrecord_iterator(str(tmp_path / "sintel-*")))
+    want = list(j_iterator([shard]))
+    assert len(got) == len(want) == 2
+    for (gi, gf), (wi, wf) in zip(got, want):
+        assert gi.shape == (6, 10, 6) and gi.dtype == np.uint8
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_array_equal(gf, wf)
+    # the infer app's --data sintel reads through the port's copy
+    from qpwcnet_torch.apps import infer
+
+    errs = infer.main(["--data", "sintel", "--data-path",
+                       str(tmp_path / "sintel-*"), "--n", "2", "--height",
+                       "32", "--width", "64", "--device", "cpu",
+                       "--out-dir", str(tmp_path / "out")])
+    assert len(errs) == 2 and all(np.isfinite(errs))
+    write_flo(tmp_path / "a.flo", want[0][1])
+    np.testing.assert_array_equal(read_flo(tmp_path / "a.flo"),
+                                  j_read_flo(tmp_path / "a.flo"))
