@@ -7,7 +7,8 @@ frame-interpolation paths on one CUDA card.
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. device: the card's name and power limit; TF32 off.
   2. build: nvcc-builds qpwcnet_torch/csrc/*.cu (sm_90a, one nvcc per
-     source, all at once) and loads the library.
+     source, all at once) and loads the library; K5's bf16 kernels must
+     issue tensor-core instructions (HMMA in cuobjdump's SASS).
   3. kernel equality: each CUDA kernel against its plain PyTorch version
      at the headline shapes (448x1024 input, batch 8, so 2B = 16 through
      the encoder), at batch 1 (the infer app's) and at one shape that is
@@ -48,9 +49,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      interp_infer app (2 synthetic triplets).
   5. times: CUDA events after warm-up, median of N: each kernel against
      its plain version at the headline shapes (K4a and K4b at the training
-     levels, K5 at its six shapes), beside its bound and, for K2 and K5,
-     the cuDNN call computing the same product; the flow forward, the
-     flow train step, the interpolator forward and the pretraining step.
+     levels, K5 at its six shapes, with its achieved GB/s), beside its
+     bound and, for K2 and K5, the cuDNN call computing the same product;
+     the flow forward, the flow train step, the interpolator forward and
+     the pretraining step; K5's in-model effect (upconv_stages 0 beside
+     2: the interpolator's forward and pretraining step, the exact flow
+     forward).
 
 The line before the card line is a JSON object with one entry per kernel:
 its launches summed over the main paths' runs (each run with the counts
@@ -202,6 +206,23 @@ def time_ms(fn, n=N_TIMED, warmup=3) -> float:
     return statistics.median(times)
 
 
+def time_chain_ms(fn, n=20, warmup=3) -> float:
+    """CUDA-event time of n back-to-back fn() calls, per call: where the
+    host enqueues a call faster than the card runs it, the card's time."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
 def seed_flow_heads(model, seed: int, hw, k: float = 1.5) -> None:
     """Non-zero flow heads: of_flow ~ N(0, (k / s)^2), s = sqrt(h² + w²)
     of the level (the 'diag' output scale), and BatchNorm scale, bias and
@@ -277,7 +298,40 @@ def phase_build():
     lib = _build.library()
     log(f"  built and loaded {_build.build().name} in "
         f"{time.perf_counter() - t0:.1f} s")
+    sass_tensor_cores(_build.build(), Path(_build._nvcc()).parent)
     return lib
+
+
+def sass_tensor_cores(lib_path, bin_dir) -> None:
+    """Count tensor-core (HMMA) instructions in K5's kernels in the built
+    library's SASS: the bf16 body must issue them, the float32 body
+    (CUDA-core FMAs) none."""
+    import re
+
+    cuobjdump = bin_dir / "cuobjdump"
+    if not cuobjdump.exists():
+        log(f"  {cuobjdump} not found: the SASS check is skipped")
+        return
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = 0
+        elif name and "HMMA" in line:
+            counts[name] += 1
+    mma, f32 = {}, {}
+    for name, n in counts.items():
+        m = re.search(r"upconv_mma_kernelILi(\d+)ELi(\d+)E", name)
+        if m:
+            mma[f"Co {m[1]}, {m[2]} phases"] = n
+        m = re.search(r"upconv_kernelILi(\d+)E", name)
+        if m:
+            f32[f"Co {m[1]}"] = n
+    log(f"  SASS HMMA count: K5 bf16 {mma}, K5 float32 {f32}")
+    check(len(mma) == 4 and all(n > 0 for n in mma.values()),
+          f"K5's bf16 body issues no HMMA: {mma}")
 
 
 def phase_kernels(dev):
@@ -1019,12 +1073,16 @@ def bound_stem(b, h, w, cin, cout):
                  2 * px * 9 * cout * (cin + 2 * cout))
 
 
+def upconv_bytes(b, h, w, ci, co):
+    """K5's bytes moved once: the bf16 input and 2x output, the float32
+    weights and bias."""
+    return 2 * (b * h * w * ci + b * 4 * h * w * co) + 4 * (16 * ci * co + co)
+
+
 def bound_upconv(b, h, w, ci, co):
-    """K5, bf16 activations: input, float32 weights and the 2x output once;
-    4 taps of ci multiply-adds per output value."""
-    out = b * 4 * h * w * co
-    return bound(2 * (b * h * w * ci + out) + 4 * (16 * ci * co + co),
-                 2 * 4 * ci * out)
+    """K5, bf16 activations: its bytes moved once; 4 taps of ci
+    multiply-adds per output value."""
+    return bound(upconv_bytes(b, h, w, ci, co), 2 * 4 * ci * b * 4 * h * w * co)
 
 
 class Totals:
@@ -1150,6 +1208,7 @@ def phase_times(dev, x, batch, ibatch):
         del dacc, src
         # K5 at the six decoder shapes; the kernels line sums the two of
         # the interpolator's training step (its main path)
+        beats_plain, beats_lib = [], []
         for n, (shape, co) in enumerate(UPCONV_SHAPES[:6]):
             xs = rand(shape)
             wt, bi = upconv_params(g, dev, shape[-1], co)
@@ -1161,10 +1220,27 @@ def phase_times(dev, x, batch, ibatch):
                 lambda: upconv_stage_plain(xs, wt, bi, bf16), bnd,
                 lambda: F.conv_transpose2d(nchw(xs), *wb, stride=2,
                                            padding=1))
+            gbs = upconv_bytes(*shape, co) / (k * 1e-3) / 1e9
+            log(f"    K5 {shape}->{co}: {gbs:.1f} GB/s achieved "
+                f"({gbs / (PEAK_BYTES / 1e9):.1%} of 3.35 TB/s), kernel / "
+                f"bound x{k / max(bnd):.1f}, kernel / cuDNN x{k / lib:.2f}")
+            kc = time_chain_ms(lambda: upconv_stage_cuda(xs, wt, bi, bf16))
+            lc = time_chain_ms(lambda: F.conv_transpose2d(
+                nchw(xs), *wb, stride=2, padding=1))
+            log(f"    K5 {shape}->{co} chained x20 (card time where the host"
+                f" keeps up): kernel {kc:.4f} ms, x{kc / max(bnd):.1f} the "
+                f"bound, {upconv_bytes(*shape, co) / (kc * 1e-3) / 1e9:.1f} "
+                f"GB/s | cuDNN {lc:.4f} ms")
+            beats_plain.append(k < p)
+            if shape[0] == 16:
+                beats_lib.append(k <= lib)
             if n < 2:
                 totals.add("upconv_stage", k, p, bnd, lib)
         del xs
         torch.cuda.empty_cache()
+        log(f"  K5 below its plain version at {sum(beats_plain)} of "
+            f"{len(beats_plain)} shapes, at or below cuDNN at "
+            f"{sum(beats_lib)} of {len(beats_lib)} batch-16 shapes")
 
         fwd = {}
         for mode, kw in (("plain", dict(cv_impl="plain", stem_stages=0)),
@@ -1220,7 +1296,61 @@ def phase_times(dev, x, batch, ibatch):
             f"b{INTERP_B}: {ms:.3f} ms, {INTERP_B / ms * 1e3:.2f} img/s")
         del m, opt
         torch.cuda.empty_cache()
+    upconv_in_model(dev, x, ibatch)
     return totals.rows
+
+
+def upconv_in_model(dev, x, ibatch):
+    """K5's effect in the models, bf16: upconv_stages=0 (the decoder's
+    plain stages) beside 2 (K5 at stages 2 and 3), all else equal, timed
+    in turns 0, 2, 2, 0 on one model of each: the interpolator's eval
+    forward and pretraining step at 256x512 b8 (INTERP_KW otherwise),
+    and the exact flow forward at 448x1024 b8."""
+    import torch
+
+    from qpwcnet_torch.train import (
+        create_interp_train_state, make_interp_train_step)
+
+    bf16 = torch.bfloat16
+    log("  K5 in-model (upconv_stages 0 beside 2, turns 0, 2, 2, 0):")
+
+    def turns(tag, runs, unit, per):
+        t = {u: [] for u in runs}
+        for u in (0, 2, 2, 0):
+            t[u].append(runs[u]())
+        m0, m2 = (statistics.mean(t[u]) for u in (0, 2))
+        log(f"    {tag}: upconv_stages=0 {m0:.3f} ms ({t[0][0]:.3f}, "
+            f"{t[0][1]:.3f}), =2 {m2:.3f} ms ({t[2][0]:.3f}, {t[2][1]:.3f})"
+            f"; {per / m0 * 1e3:.2f} vs {per / m2 * 1e3:.2f} {unit}; 2 - 0 ="
+            f" {m2 - m0:+.3f} ms")
+
+    ims = ibatch["ims"]
+    with torch.inference_mode():
+        ms = {u: build_interp(bf16, dev, k=1.5,
+                              **dict(INTERP_KW, upconv_stages=u))
+              for u in (0, 2)}
+        turns(f"interp forward {TRAIN_H}x{TRAIN_W} b{INTERP_B}",
+              {u: (lambda m=m: time_ms(lambda: m(ims))) for u, m in
+               ms.items()}, "triplets/s", INTERP_B)
+        del ms
+        fs = {u: build(bf16, dev, cv_impl="auto", stem_stages=2,
+                       upconv_stages=u) for u in (0, 2)}
+        turns(f"flow forward exact {H}x{W} b{B}",
+              {u: (lambda m=m: time_ms(lambda: m(x))) for u, m in
+               fs.items()}, "pairs/s", B)
+        del fs
+        torch.cuda.empty_cache()
+    istep = make_interp_train_step()
+    models = {u: build_interp(bf16, dev, k=TRAIN_K,
+                              **dict(INTERP_KW, upconv_stages=u))
+              for u in (0, 2)}
+    opts = {u: create_interp_train_state(m, 1e-4) for u, m in models.items()}
+    turns(f"pretraining step {TRAIN_H}x{TRAIN_W} b{INTERP_B}",
+          {u: (lambda u=u: time_ms(
+              lambda: istep(models[u], opts[u], ibatch), n=N_STEPS_TIMED,
+              warmup=2)) for u in models}, "img/s", INTERP_B)
+    del models, opts
+    torch.cuda.empty_cache()
 
 
 def main() -> int:

@@ -15,7 +15,9 @@ Each C entry point takes its pointers and the CUDA stream as
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -137,6 +139,7 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err}")
 
 
+@functools.cache
 def dtype_code(dtype) -> int:
     """The C entry points' dtype argument: 0 float32, 1 bfloat16."""
     import torch
@@ -148,9 +151,21 @@ def dtype_code(dtype) -> int:
 
 
 def stream_ptr(device) -> int:
+    """The raw handle of ``device``'s current stream (without building a
+    ``torch.cuda.Stream``: a few microseconds of host time a launch)."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def on_device(device):
+    """The context of a launch on ``device``: ``torch.cuda.device`` only
+    where another device is current (entering it costs microseconds)."""
+    import torch
+
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def require(t, name: str, shape=None, dtype=None, device=None) -> None:

@@ -60,7 +60,7 @@ def cost_volume_cuda(prv: torch.Tensor, nxt: torch.Tensor,
     _build.require(nxt, "nxt", prv.shape, prv.dtype, prv.device)
     out = torch.empty((b, h, w, N_DISP), dtype=prv.dtype, device=prv.device)
     lib = _build.library()
-    with torch.cuda.device(prv.device):
+    with _build.on_device(prv.device):
         err = lib.qpw_cost_volume(
             prv.data_ptr(), nxt.data_ptr(), out.data_ptr(), b, h, w, c,
             _build.dtype_code(prv.dtype), _build.stream_ptr(prv.device))
@@ -78,7 +78,7 @@ def _launch_bwd(entry: str, dacc: torch.Tensor, src: torch.Tensor,
     _build.require(dacc, "dacc", (b, h, w, N_DISP), src.dtype, src.device)
     out = torch.empty_like(src)
     lib = _build.library()
-    with torch.cuda.device(src.device):
+    with _build.on_device(src.device):
         err = getattr(lib, entry)(
             dacc.data_ptr(), src.data_ptr(), out.data_ptr(), b, h, w, c,
             _build.dtype_code(src.dtype), _build.stream_ptr(src.device))

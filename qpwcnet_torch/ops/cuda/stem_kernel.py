@@ -85,7 +85,7 @@ def downconv_stage_cuda(x: torch.Tensor, params: Params,
     out = torch.empty((b, h // 2, w // 2, c_out), dtype=dtype,
                       device=x.device)
     lib = _build.library()
-    with torch.cuda.device(x.device):
+    with _build.on_device(x.device):
         err = lib.qpw_downconv_stage(
             x.data_ptr(), *(t.data_ptr() for t in args), out.data_ptr(),
             b, h, w, c_in, c_out, _build.dtype_code(dtype),

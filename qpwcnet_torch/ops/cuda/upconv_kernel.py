@@ -7,23 +7,39 @@ Computes ConvTranspose 4x4/s2 'SAME' + bias + Mish in one launch, NHWC
 in and out: (B, H, W, Ci) -> (B, 2H, 2W, Co), Co in {16, 32} (decoder
 stages 2 and 3: 128 -> 32 and 64 -> 16 channels).
 
-What bounds it on the H100: the work is 4·Ci multiply-adds per output
-value (4 taps of each phase); the bytes are the input read once and the
-output written once (17-117 MB at the training and headline shapes in
-bf16). At bf16 tensor-core rates it would be bound by those bytes (5-35
-µs); on CUDA cores (67 TFLOP/s float32) the FMAs bound it, several times
-above that. Unfused, the transpose conv writes its
-(B, 2H, 2W, Co) map, and the bias add and Mish's eight elementwise passes
-read and write it again. The kernel computes only the 4 of 9 taps each
-output phase reads (the TPU kernel's zero-padded 9-tap phase matrices
-do 2.25x the work), keeps each lane's 4 positions x Co sums in
-registers, stages the input with its 1-pixel halo and the weights (read
-in their stored float32 (Ci, Co, 4, 4) layout, so a call launches nothing
-but the kernel) in shared memory one 16-channel chunk at a time, and
-writes each output
-pixel once, straight to (2i+r, 2j+s): the TPU's phase-major output, its
-interleave transpose, its lane padding and its validity masks are not
-needed. Tensor cores are later work.
+What bounds it on the H100: per input position, 4 phases x 4 taps x Ci
+x Co multiply-adds against 2·Ci bytes in and 8·Co bytes out (256
+operations a byte at 128 -> 32, 128 at 64 -> 16). On the bf16 tensor
+cores that is below the card's ridge point (~295), so the bytes bound it
+(the input read once and the output written once: 5-35 µs at the
+training and headline shapes); on the CUDA cores the multiply-adds
+would, over ten times higher. Unfused, the transpose conv writes its
+(B, 2H, 2W, Co) map, and the bias add and Mish's eight elementwise
+passes read and write it again.
+
+Both bodies compute only the 4 of 9 taps each output phase reads (the
+TPU kernel's zero-padded 9-tap phase matrices do 2.25x the work), read
+the weight and bias in their stored float32 layout (so a call launches
+nothing but the kernel) and write each output pixel once: the TPU's
+phase-major output, its interleave transpose, its lane padding and its
+validity masks are not needed.
+
+- bfloat16: an implicit GEMM per output phase on the tensor cores
+  (mma.sync m16n8k16, bf16 operands, float32 sums). Each block rounds
+  its phases' weights to bf16 into shared memory once ([tap][co][ci],
+  136 KB at 128 -> 32; the two blocks of a cluster stage them together)
+  and walks tiles of 4 x 16 input positions (8 x 16 at Co = 16) with a
+  persistent grid. Its 16 warps form two groups that take turns on the
+  tensor cores: while one computes its tile's products, the other
+  copies its next haloed tile with cp.async and runs its epilogue,
+  storing straight from registers. At batch 1 a block takes two phases,
+  so the tiles cover the SMs. The resident weights and the two groups'
+  tiles must fit in 227 KB of shared memory: Ci <= 144 at Co = 32 and
+  Ci <= 176 at Co = 16.
+- float32: multiply-adds on the CUDA cores (TF32 would break the 1e-5
+  equality with the plain version), each lane 4 positions x Co sums in
+  registers, input and weights through shared memory 16 channels at a
+  time.
 """
 
 from __future__ import annotations
@@ -39,6 +55,10 @@ from qpwcnet_torch.ops.cuda import _build
 
 # Output channel counts the kernel is compiled for (decoder stages 2, 3).
 UPCONV_CHANNELS = (16, 32)
+# The largest Ci of the bf16 body by Co: its resident weights and its two
+# warp groups' input tiles fill the block's 227 KB of shared memory
+# (csrc/upconv.cu:um_smem_bytes).
+UPCONV_MAX_CI_BF16 = {16: 176, 32: 144}
 
 Params = Sequence[tuple[torch.Tensor, torch.Tensor]]
 
@@ -78,15 +98,19 @@ def upconv_stage_cuda(x: torch.Tensor, weight: torch.Tensor,
     if c_out not in UPCONV_CHANNELS:
         raise ValueError(f"the CUDA upconv kernel is built for "
                          f"{UPCONV_CHANNELS} output channels, got {c_out}")
+    if dtype == torch.bfloat16 and c_in > UPCONV_MAX_CI_BF16[c_out]:
+        raise ValueError(f"the bf16 upconv kernel takes at most "
+                         f"{UPCONV_MAX_CI_BF16[c_out]} input channels at "
+                         f"Co={c_out}, got {c_in}")
     _build.require(x, "x", dtype=dtype)
     # The kernel reads the stored layout in float32 and rounds to dtype
     # itself: no copy for float32 parameters.
     wt, bt = weight.float(), bias.float()
     _build.require(wt, "weight", device=x.device)
     _build.require(bt, "bias", (c_out,), device=x.device)
-    out = torch.empty((b, 2 * h, 2 * w, c_out), dtype=dtype, device=x.device)
+    out = x.new_empty((b, 2 * h, 2 * w, c_out))
     lib = _build.library()
-    with torch.cuda.device(x.device):
+    with _build.on_device(x.device):
         err = lib.qpw_upconv_stage(
             x.data_ptr(), wt.data_ptr(), bt.data_ptr(), out.data_ptr(),
             b, h, w, c_in, c_out, _build.dtype_code(dtype),

@@ -67,7 +67,7 @@ def warp_cost_volume_cuda(prv: torch.Tensor, nxt: torch.Tensor,
     d = 2 * search_range + 1
     out = torch.empty((b, h, w, d * d), dtype=prv.dtype, device=prv.device)
     lib = _build.library()
-    with torch.cuda.device(prv.device):
+    with _build.on_device(prv.device):
         err = lib.qpw_warp_cost_volume(
             prv.data_ptr(), nxt.data_ptr(), flow.data_ptr(), out.data_ptr(),
             b, h, w, c, float(warp_window), _build.dtype_code(prv.dtype),

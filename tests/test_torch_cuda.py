@@ -213,14 +213,11 @@ def test_wrappers_validate_inputs(dev):
         cost_volume_bwd_nxt_cuda(dacc.bfloat16(), prv)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,cout", [((2, 13, 37, 128), 32),
-                                        ((1, 9, 70, 20), 16)])
-def test_upconv_stage_kernel(dev, dtype, shape, cout):
-    """K5 against its plain version; Ci = 20 leaves a ragged channel
-    chunk, W = 70 a ragged column tile."""
-    rng = np.random.RandomState(7)
+def _check_upconv(dev, dtype, shape, cout, seed):
+    """One K5 launch against its plain version: float32 within 1e-5 of
+    the magnitude, bf16 within two ulps (a one-ulp flip of the rounded
+    sum moves the bias add's and Mish's roundings too)."""
+    rng = np.random.RandomState(seed)
     x = _rand(rng, shape, dev, dtype)
     w = _rand(rng, (shape[-1], cout, 4, 4), dev, scale=(4 * shape[-1]) ** -0.5)
     b = _rand(rng, (cout,), dev, scale=0.1)
@@ -230,11 +227,44 @@ def test_upconv_stage_kernel(dev, dtype, shape, cout):
     torch.cuda.synchronize()
     assert got.shape == want.shape == (shape[0], 2 * shape[1],
                                        2 * shape[2], cout)
+    assert bool(torch.isfinite(got.float()).all())
     err = float((got.float() - want.float()).abs().max())
     ulps = 2 if dtype == torch.bfloat16 else 1
     assert err <= ulps * REL[dtype] * max(1.0,
                                           float(want.float().abs().max()))
     assert upconv_stage_cuda.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cout", [((2, 13, 37, 128), 32),
+                                        ((1, 9, 70, 20), 16)])
+def test_upconv_stage_kernel(dev, dtype, shape, cout):
+    """K5 against its plain version; Ci = 20 leaves a ragged channel
+    chunk, W = 70 a ragged column tile."""
+    _check_upconv(dev, dtype, shape, cout, seed=7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cout", [16, 32])
+@pytest.mark.parametrize("cin", [16, 20, 64, 128])
+def test_upconv_stage_kernel_bf16_widths(dev, cin, cout):
+    """The bf16 tensor-core body at each input width: Ci = 20 is padded
+    to two 16-channel steps with zeros and staged by element loads (no
+    16-byte copies: Ci is no multiple of 8)."""
+    _check_upconv(dev, torch.bfloat16, (2, 13, 37, cin), cout, seed=11)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cout", [
+    ((4, 64, 128, 128), 32),  # 512 tiles: more than the persistent grid
+    ((8, 64, 128, 64), 16),   # holds, so each warp group walks several
+    ((1, 32, 64, 128), 32),   # batch 1: fewer 4-phase tiles than SMs,
+    ((1, 64, 128, 64), 16),   # so a block takes 2 phases
+])
+def test_upconv_stage_kernel_grid(dev, dtype, shape, cout):
+    _check_upconv(dev, dtype, shape, cout, seed=12)
 
 
 @pytest.mark.cuda
@@ -287,3 +317,8 @@ def test_upconv_wrapper_validates_inputs(dev):
         upconv_stage_cuda(x.transpose(1, 2), w, b, torch.float32)
     with pytest.raises(ValueError):
         upconv_stage_cuda(x, w[:16].contiguous(), b, torch.float32)
+    # more input channels than the bf16 body's shared memory holds
+    wide = _rand(rng, (1, 4, 8, 160), dev, torch.bfloat16)
+    with pytest.raises(ValueError):
+        upconv_stage_cuda(wide, _rand(rng, (160, 32, 4, 4), dev),
+                          _rand(rng, (32,), dev), torch.bfloat16)

@@ -452,7 +452,8 @@ def test_profiling_categories():
         "void qpw::cv_bwd_kernel<__nv_bfloat16, false>(int)": "K4a",
         "void qpw::cv_bwd_kernel<float, true>(int)": "K4b",
         "void qpw::stem_kernel<float, 16>(int)": "K2",
-        "void qpw::upconv_kernel<__nv_bfloat16, 32>(int)": "K5",
+        "void qpw::upconv_kernel<32>(int)": "K5",
+        "void qpw::upconv_mma_kernel<32, 4>(int)": "K5",
         "sm90_xmma_fprop_implicit_gemm_bf16": "cuDNN",
         "void at::native::vectorized_elementwise_kernel<4>": "elementwise",
         "void at::native::reduce_kernel<512, 1>": "reduce",
