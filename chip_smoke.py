@@ -7,12 +7,15 @@ frame-interpolation paths on one CUDA card.
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. device: the card's name and power limit; TF32 off.
   2. build: nvcc-builds qpwcnet_torch/csrc/*.cu (sm_90a, one nvcc per
-     source, all at once) and loads the library; K5's bf16 kernels must
-     issue tensor-core instructions (HMMA in cuobjdump's SASS).
+     source, all at once) and loads the library; K2's and K5's bf16
+     kernels must issue tensor-core instructions (HMMA in cuobjdump's
+     SASS), every instantiation.
   3. kernel equality: each CUDA kernel against its plain PyTorch version
      at the headline shapes (448x1024 input, batch 8, so 2B = 16 through
      the encoder), at batch 1 (the infer app's) and at one shape that is
-     no tile multiple, in float32 and bf16; the cost-volume backward
+     no tile multiple, in float32 and bf16 (K2 also at a ragged Co 32
+     shape, and in bf16 at encoder stage 2's Co 64, which float32 must
+     refuse); the cost-volume backward
      kernels K4a and K4b at the five cost-volume levels of the training
      configuration (256x512, batch 16), at batch 1 and at an odd shape,
      and the trainable cost volume's gradients against autograd of the
@@ -24,7 +27,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
   4. slice: PWCFlowNet at 448x1024 b8 with seeded, non-zero flow heads,
      exact and 'fast', against the plain model (stem_stages=0,
      cv_impl='plain') in bf16 and float32, with each kernel's launch
-     count per forward; the float32 model on the card against the same
+     count per forward and the device kernels of one bf16 forward
+     (torch.profiler); the float32 model on the card against the same
      model on the CPU at a small shape; then the infer app
      (qpwcnet_torch.apps.infer, --fast, 2 requests at 448x1024) as the
      first main path.
@@ -50,11 +54,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
   5. times: CUDA events after warm-up, median of N: each kernel against
      its plain version at the headline shapes (K4a and K4b at the training
      levels, K5 at its six shapes, with its achieved GB/s), beside its
-     bound and, for K2 and K5, the cuDNN call computing the same product;
-     the flow forward, the flow train step, the interpolator forward and
-     the pretraining step; K5's in-model effect (upconv_stages 0 beside
-     2: the interpolator's forward and pretraining step, the exact flow
-     forward).
+     bound and, for K2 and K5, the cuDNN call computing the same product
+     (K2 and K5 also chained, with their achieved GB/s); the flow
+     forward, the flow train step, the interpolator forward and the
+     pretraining step; K5's in-model effect (upconv_stages 0 beside 2:
+     the interpolator's forward and pretraining step, the exact flow
+     forward) and K2's (stem_stages 0 beside 2: the exact flow forward).
 
 The line before the card line is a JSON object with one entry per kernel:
 its launches summed over the main paths' runs (each run with the counts
@@ -134,6 +139,14 @@ UPCONV_SHAPES = [((16, 32, 64, 128), 32), ((16, 64, 128, 64), 16),
                  ((16, 56, 128, 128), 32), ((16, 112, 256, 64), 16),
                  ((2, 32, 64, 128), 32), ((2, 64, 128, 64), 16),
                  ((3, 13, 37, 128), 32)]
+# K2's shapes, (B, H, W, Ci) -> Co: encoder stages 0 and 1 of the flow
+# headline (2B = 16 at 448x1024) and of batch 1, one shape that is no
+# tile multiple at each of Co 16 and 32, and stage 2 of the headline
+# (Co 64: bf16 only, float32 refuses it)
+STEM_SHAPES = [((2 * B, H, W, 3), 16), ((2 * B, H // 2, W // 2, 16), 32),
+               ((2, H, W, 3), 16), ((2, H // 2, W // 2, 16), 32),
+               ((2, 70, 90, 3), 16), ((3, 38, 70, 16), 32),
+               ((2 * B, H // 4, W // 4, 32), 64)]
 # The H100 SXM's published peaks (NVIDIA data sheet, 700 W): device
 # memory bytes/s and dense bf16 tensor-core operations/s
 PEAK_BYTES = 3.35e12
@@ -303,9 +316,9 @@ def phase_build():
 
 
 def sass_tensor_cores(lib_path, bin_dir) -> None:
-    """Count tensor-core (HMMA) instructions in K5's kernels in the built
-    library's SASS: the bf16 body must issue them, the float32 body
-    (CUDA-core FMAs) none."""
+    """Count tensor-core (HMMA) instructions in K2's and K5's kernels in
+    the built library's SASS: each bf16 instantiation must issue them, the
+    float32 bodies (CUDA-core FMAs) none."""
     import re
 
     cuobjdump = bin_dir / "cuobjdump"
@@ -321,7 +334,7 @@ def sass_tensor_cores(lib_path, bin_dir) -> None:
             counts[name] = 0
         elif name and "HMMA" in line:
             counts[name] += 1
-    mma, f32 = {}, {}
+    mma, f32, stem, stem32 = {}, {}, {}, {}
     for name, n in counts.items():
         m = re.search(r"upconv_mma_kernelILi(\d+)ELi(\d+)E", name)
         if m:
@@ -329,9 +342,18 @@ def sass_tensor_cores(lib_path, bin_dir) -> None:
         m = re.search(r"upconv_kernelILi(\d+)E", name)
         if m:
             f32[f"Co {m[1]}"] = n
+        m = re.search(r"stem_mma_kernelILi(\d+)ELb([01])E", name)
+        if m:
+            stem[f"Co {m[1]}, " + ("Ci <= 4" if m[2] == "1" else "Ci > 4")] = n
+        m = re.search(r"stem_kernelILi(\d+)E", name)
+        if m:
+            stem32[f"Co {m[1]}"] = n
     log(f"  SASS HMMA count: K5 bf16 {mma}, K5 float32 {f32}")
+    log(f"  SASS HMMA count: K2 bf16 {stem}, K2 float32 {stem32}")
     check(len(mma) == 4 and all(n > 0 for n in mma.values()),
           f"K5's bf16 body issues no HMMA: {mma}")
+    check(len(stem) == 6 and all(n > 0 for n in stem.values()),
+          f"K2's bf16 body issues no HMMA: {stem}")
 
 
 def phase_kernels(dev):
@@ -340,7 +362,7 @@ def phase_kernels(dev):
     from qpwcnet_torch.ops.cost_volume import cost_volume_plain
     from qpwcnet_torch.ops.cuda.cost_volume_kernel import cost_volume_cuda
     from qpwcnet_torch.ops.cuda.stem_kernel import (
-        downconv_stage_cuda, downconv_stage_plain)
+        STEM_CHANNELS, downconv_stage_cuda, downconv_stage_plain)
     from qpwcnet_torch.ops.cuda.warp_cv_kernel import (
         warp_cost_volume_cuda, warp_cost_volume_plain)
 
@@ -380,23 +402,31 @@ def phase_kernels(dev):
                     warp_cost_volume_cuda(prv, nxt, flow),
                     warp_cost_volume_plain(prv, nxt, flow),
                     rel, errs, "warp_cost_volume")
-        for (b, h, w, cin), cout in (((2 * B, H, W, 3), 16),
-                                     ((2 * B, H // 2, W // 2, 16), 32),
-                                     ((2, H, W, 3), 16),
-                                     ((2, H // 2, W // 2, 16), 32),
-                                     ((2, 70, 90, 3), 16)):
+        for (b, h, w, cin), cout in STEM_SHAPES:
             x = rand((b, h, w, cin), dtype, 0.5)
             params = [(rand((cout, ci, 3, 3), torch.float32,
                             (9 * ci) ** -0.5),
                        rand((cout,), torch.float32, 0.1))
                       for ci in (cin, cout, cout)]
+            if cout not in STEM_CHANNELS[dtype]:
+                try:
+                    downconv_stage_cuda(x, params, dtype)
+                except ValueError as e:
+                    log(f"  K2 {dn} ({b},{h},{w},{cin})->{cout}: refused "
+                        f"({e})")
+                    continue
+                fail(f"K2 {dn} at Co {cout} did not refuse")
             # bf16: a one-ulp rounding flip in conv_a or conv_aa moves the
             # later convs' sums across rounding points too: 4 ulps
+            got = downconv_stage_cuda(x, params, dtype)
+            want = downconv_stage_plain(x, params, dtype)
             compare(f"K2 downconv_stage {dn} ({b},{h},{w},{cin})->{cout}",
-                    downconv_stage_cuda(x, params, dtype),
-                    downconv_stage_plain(x, params, dtype),
+                    got, want,
                     rel if dtype == torch.float32 else 4 * REL_BF16,
                     errs, "downconv_stage")
+            if dtype == torch.bfloat16:
+                log(f"    {bf16_ulps(got, want)}")
+            del got, want
         torch.cuda.empty_cache()
     return errs
 
@@ -550,6 +580,7 @@ def phase_slice(dev):
     from qpwcnet_torch.apps import infer
     from qpwcnet_torch.ops import cuda as kernels
     from qpwcnet_torch.utils.config import parse_config
+    from qpwcnet_torch.utils.profiling import breakdown
 
     log(f"== phase 4: slice, PWCFlowNet {H}x{W} b{B}, seeded flow heads")
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -583,6 +614,16 @@ def phase_slice(dev):
                       f"expected {want}")
                 flows[mode, dtype] = out
                 models[mode, dtype] = m
+            if dtype == bf16:
+                # every device kernel of one forward: K2 launches nothing
+                # beside its kernel (no weight casts or permutes)
+                for mode in ("exact", "fast"):
+                    prof = breakdown(lambda: models[mode, dtype](x), n=1,
+                                     warmup=1)
+                    log(f"  {mode} {dn}: {prof['kernels']:.0f} device "
+                        f"kernels a forward (torch.profiler), K2 "
+                        f"{prof['by_category'].get('K2', 0.0):.3f} ms of "
+                        f"{prof['busy_ms']:.3f} busy ms")
             # the flow entering the finest UpFlow, where 'fast' clamps
             ms = models["plain", dtype](x, multiscale=True)
             fin_in = 2.0 * ms[-3].abs()
@@ -1064,12 +1105,18 @@ def bound_cv(b, h, w, c, extra_ops=0, extra_bytes=0):
                  2 * 81 * c * px + extra_ops)
 
 
+def stem_bytes(b, h, w, cin, cout):
+    """K2's bytes moved once: the bf16 input and half-size output, the
+    float32 weights and biases."""
+    return (2 * (b * h * w * cin + b * (h // 2) * (w // 2) * cout)
+            + 4 * (9 * cout * (cin + 2 * cout) + 3 * cout))
+
+
 def bound_stem(b, h, w, cin, cout):
-    """K2, bf16: input, weights and the half-size output once; the three
-    3x3 convs' multiply-adds."""
+    """K2, bf16 activations: its bytes moved once; the three 3x3 convs'
+    multiply-adds."""
     px = b * (h // 2) * (w // 2)
-    return bound(2 * (b * h * w * cin + px * cout
-                      + 9 * cout * (cin + 2 * cout) + 3 * cout),
+    return bound(stem_bytes(b, h, w, cin, cout),
                  2 * px * 9 * cout * (cin + 2 * cout))
 
 
@@ -1157,8 +1204,11 @@ def phase_times(dev, x, batch, ibatch):
                          lambda: cost_volume_cuda(prv, nxt),
                          lambda: cost_volume_plain(prv, nxt), bnd)
             totals.add("cost_volume", k, p, bnd)
-        for (b, h, w, cin), cout in (((2 * B, H, W, 3), 16),
-                                     ((2 * B, H // 2, W // 2, 16), 32)):
+        # K2 at encoder stages 0 and 1 of the headline (the kernels line
+        # sums these two) and stage 2 (Co 64, stem_stages=3)
+        beats = []
+        for n, ((b, h, w, cin), cout) in enumerate(
+                (STEM_SHAPES[0], STEM_SHAPES[1], STEM_SHAPES[-1])):
             xs = rand((b, h, w, cin), scale=0.5)
             params = [(rand((cout, ci, 3, 3), torch.float32,
                             (9 * ci) ** -0.5),
@@ -1175,12 +1225,23 @@ def phase_times(dev, x, batch, ibatch):
                 return F.conv2d(y, *wb[2], padding=1)
 
             bnd = bound_stem(b, h, w, cin, cout)
-            k, p, lib = ab(
-                f"K2 downconv_stage ({b},{h},{w},{cin})->{cout}",
-                lambda: downconv_stage_cuda(xs, params, bf16),
-                lambda: downconv_stage_plain(xs, params, bf16), bnd,
-                cudnn_convs)
-            totals.add("downconv_stage", k, p, bnd, lib)
+            tag = f"K2 downconv_stage ({b},{h},{w},{cin})->{cout}"
+            k, p, lib = ab(tag, lambda: downconv_stage_cuda(xs, params, bf16),
+                           lambda: downconv_stage_plain(xs, params, bf16),
+                           bnd, cudnn_convs)
+            nbytes = stem_bytes(b, h, w, cin, cout)
+            kc = time_chain_ms(lambda: downconv_stage_cuda(xs, params, bf16))
+            lc = time_chain_ms(cudnn_convs)
+            log(f"    {tag}: one call {nbytes / (k * 1e-3) / 1e9:.1f} GB/s "
+                f"achieved, kernel / cuDNN x{k / lib:.2f}; chained x20 "
+                f"(card time where the host keeps up): kernel {kc:.4f} ms, "
+                f"x{kc / max(bnd):.1f} the bound, "
+                f"{nbytes / (kc * 1e-3) / 1e9:.1f} GB/s | cuDNN {lc:.4f} ms")
+            if n < 2:
+                totals.add("downconv_stage", k, p, bnd, lib)
+                beats.append(k < p and k < lib)
+        log(f"  K2 below its plain version and cuDNN at {sum(beats)} of "
+            f"{len(beats)} headline stages")
         shape = (B, 224, 512, 32)
         prv, nxt = rand(shape), rand(shape)
         flow = rand(shape[:3] + (2,), torch.float32, 3.0)
@@ -1297,7 +1358,38 @@ def phase_times(dev, x, batch, ibatch):
         del m, opt
         torch.cuda.empty_cache()
     upconv_in_model(dev, x, ibatch)
+    stem_in_model(dev, x)
     return totals.rows
+
+
+def in_turns(tag, knob, runs, unit, per):
+    """Time runs[0]() and runs[2]() in turns 0, 2, 2, 0 and log both
+    settings of ``knob`` (ms each, ``per`` items a call in ``unit``)."""
+    t = {u: [] for u in runs}
+    for u in (0, 2, 2, 0):
+        t[u].append(runs[u]())
+    m0, m2 = (statistics.mean(t[u]) for u in (0, 2))
+    log(f"    {tag}: {knob}=0 {m0:.3f} ms ({t[0][0]:.3f}, {t[0][1]:.3f}), "
+        f"=2 {m2:.3f} ms ({t[2][0]:.3f}, {t[2][1]:.3f}); "
+        f"{per / m0 * 1e3:.2f} vs {per / m2 * 1e3:.2f} {unit}; 2 - 0 = "
+        f"{m2 - m0:+.3f} ms")
+
+
+def stem_in_model(dev, x):
+    """K2's effect in the exact flow forward at 448x1024 b8, bf16:
+    stem_stages=0 (encoder stages 0 and 1 unfused) beside 2, all else
+    equal, timed in turns 0, 2, 2, 0 on one model of each."""
+    import torch
+
+    log("  K2 in-model (stem_stages 0 beside 2, turns 0, 2, 2, 0):")
+    with torch.inference_mode():
+        fs = {u: build(torch.bfloat16, dev, cv_impl="auto", stem_stages=u)
+              for u in (0, 2)}
+        in_turns(f"flow forward exact {H}x{W} b{B}", "stem_stages",
+                 {u: (lambda m=m: time_ms(lambda: m(x))) for u, m in
+                  fs.items()}, "pairs/s", B)
+        del fs
+        torch.cuda.empty_cache()
 
 
 def upconv_in_model(dev, x, ibatch):
@@ -1313,31 +1405,21 @@ def upconv_in_model(dev, x, ibatch):
 
     bf16 = torch.bfloat16
     log("  K5 in-model (upconv_stages 0 beside 2, turns 0, 2, 2, 0):")
-
-    def turns(tag, runs, unit, per):
-        t = {u: [] for u in runs}
-        for u in (0, 2, 2, 0):
-            t[u].append(runs[u]())
-        m0, m2 = (statistics.mean(t[u]) for u in (0, 2))
-        log(f"    {tag}: upconv_stages=0 {m0:.3f} ms ({t[0][0]:.3f}, "
-            f"{t[0][1]:.3f}), =2 {m2:.3f} ms ({t[2][0]:.3f}, {t[2][1]:.3f})"
-            f"; {per / m0 * 1e3:.2f} vs {per / m2 * 1e3:.2f} {unit}; 2 - 0 ="
-            f" {m2 - m0:+.3f} ms")
-
     ims = ibatch["ims"]
     with torch.inference_mode():
         ms = {u: build_interp(bf16, dev, k=1.5,
                               **dict(INTERP_KW, upconv_stages=u))
               for u in (0, 2)}
-        turns(f"interp forward {TRAIN_H}x{TRAIN_W} b{INTERP_B}",
-              {u: (lambda m=m: time_ms(lambda: m(ims))) for u, m in
-               ms.items()}, "triplets/s", INTERP_B)
+        in_turns(f"interp forward {TRAIN_H}x{TRAIN_W} b{INTERP_B}",
+                 "upconv_stages",
+                 {u: (lambda m=m: time_ms(lambda: m(ims))) for u, m in
+                  ms.items()}, "triplets/s", INTERP_B)
         del ms
         fs = {u: build(bf16, dev, cv_impl="auto", stem_stages=2,
                        upconv_stages=u) for u in (0, 2)}
-        turns(f"flow forward exact {H}x{W} b{B}",
-              {u: (lambda m=m: time_ms(lambda: m(x))) for u, m in
-               fs.items()}, "pairs/s", B)
+        in_turns(f"flow forward exact {H}x{W} b{B}", "upconv_stages",
+                 {u: (lambda m=m: time_ms(lambda: m(x))) for u, m in
+                  fs.items()}, "pairs/s", B)
         del fs
         torch.cuda.empty_cache()
     istep = make_interp_train_step()
@@ -1345,10 +1427,11 @@ def upconv_in_model(dev, x, ibatch):
                               **dict(INTERP_KW, upconv_stages=u))
               for u in (0, 2)}
     opts = {u: create_interp_train_state(m, 1e-4) for u, m in models.items()}
-    turns(f"pretraining step {TRAIN_H}x{TRAIN_W} b{INTERP_B}",
-          {u: (lambda u=u: time_ms(
-              lambda: istep(models[u], opts[u], ibatch), n=N_STEPS_TIMED,
-              warmup=2)) for u in models}, "img/s", INTERP_B)
+    in_turns(f"pretraining step {TRAIN_H}x{TRAIN_W} b{INTERP_B}",
+             "upconv_stages",
+             {u: (lambda u=u: time_ms(
+                 lambda: istep(models[u], opts[u], ibatch), n=N_STEPS_TIMED,
+                 warmup=2)) for u in models}, "img/s", INTERP_B)
     del models, opts
     torch.cuda.empty_cache()
 

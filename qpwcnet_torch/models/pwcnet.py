@@ -26,14 +26,8 @@ from qpwcnet_torch.models.blocks import (
     UpConv,
     UpFlowBlock,
 )
-from qpwcnet_torch.ops.cuda.stem_kernel import (
-    STEM_CHANNELS,
-    downconv_stage_trainable,
-)
-from qpwcnet_torch.ops.cuda.upconv_kernel import (
-    UPCONV_CHANNELS,
-    upconv_stage_trainable,
-)
+from qpwcnet_torch.ops.cuda.stem_kernel import downconv_stage_trainable
+from qpwcnet_torch.ops.cuda.upconv_kernel import upconv_stage_trainable
 from qpwcnet_torch.ops.resize import avg_pool_2x, upsample2x_bilinear_nchw
 from qpwcnet_torch.quantize.qlayers import QConv, QConvTranspose
 
@@ -49,16 +43,14 @@ class Encoder(nn.Module):
     The first ``stem_stages`` stages run as one fused CUDA kernel each
     (ops/cuda/stem_kernel.py), reading the same parameters as the
     DownConv modules, with the unfused composition's gradients; on CPU
-    tensors the forward is the unfused composition too.
+    tensors the forward is the unfused composition too, at any stage
+    count. On the card a stage whose width the kernel is not built for
+    (``STEM_CHANNELS``) raises at its launch.
     """
 
     def __init__(self, filters: Sequence[int] = ENCODER_FILTERS,
                  dtype: torch.dtype = torch.float32, stem_stages: int = 0):
         super().__init__()
-        if any(f not in STEM_CHANNELS for f in filters[:stem_stages]):
-            raise ValueError(
-                f"stem_stages={stem_stages}: the fused stem kernel takes "
-                f"stages with {STEM_CHANNELS} output channels")
         self.dtype = dtype
         self.stem_stages = stem_stages
         chans = [3, *filters]
@@ -87,18 +79,15 @@ class Decoder(nn.Module):
     The last ``upconv_stages`` stages run as one fused CUDA kernel each
     (ops/cuda/upconv_kernel.py), reading the same parameters as the
     UpConv modules, with the unfused composition's gradients; on CPU
-    tensors the forward is the unfused composition too.
+    tensors the forward is the unfused composition too, at any stage
+    count. On the card a stage whose width the kernel is not built for
+    (``UPCONV_CHANNELS``) raises at its launch.
     """
 
     def __init__(self, filters: Sequence[int] = DECODER_FILTERS,
                  enc_filters: Sequence[int] = ENCODER_FILTERS,
                  dtype: torch.dtype = torch.float32, upconv_stages: int = 0):
         super().__init__()
-        if any(f not in UPCONV_CHANNELS
-               for f in filters[len(filters) - upconv_stages:]):
-            raise ValueError(
-                f"upconv_stages={upconv_stages}: the fused upconv kernel "
-                f"takes stages with {UPCONV_CHANNELS} output channels")
         self.dtype = dtype
         self.upconv_stages = upconv_stages
         stages = []

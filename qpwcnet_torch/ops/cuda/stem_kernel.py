@@ -7,15 +7,28 @@ Computes Conv3x3/s2 SAME + bias + Mish -> Conv3x3 + bias + Mish ->
 Conv3x3 + bias + Mish in one launch, NHWC in and out.
 
 What bounds it on the H100: unfused, each of the three convs writes its
-full-resolution map (C = 16 or 32 channels at 224x512 or 112x256 per
-image at the headline) and the next conv and the Mish read it back, so the
-stem is bounded by device-memory traffic of its intermediates. The kernel
-keeps both intermediates in shared memory for a 16x16 output tile
-(recomputing a 2- and 1-pixel halo), so it reads the input and writes the
-output once; it is then bounded by its CUDA-core FMAs and shared-memory
-reads (no tensor cores yet). The TPU kernel's space-to-depth phase input,
-flat lane-padded layout and validity masks are not needed: a thread
-indexes x[2i+dy, 2j+dx] directly and zeroes out-of-image halo positions.
+full-resolution map and the bias add and Mish's elementwise passes read
+and write it again. The kernel keeps both intermediates in shared memory
+for an output tile (recomputing a 2- and a 1-pixel halo), so it reads the
+input and writes the output once: the bytes bound it. As built, the
+three convs' Mish epilogues (halos included), the products and the
+staging each take a quarter to a half of its time, and they add up
+(PERF.md).
+Both bodies read the weights and biases in their stored float32 layout
+(so a call launches nothing but the kernel); the TPU kernel's
+space-to-depth phase input, flat lane-padded layout and validity masks
+are not needed.
+
+- bfloat16: an implicit GEMM per conv on the tensor cores (mma.sync
+  m16n8k16, bf16 operands, float32 sums, ldmatrix operands), the input
+  tile staged with cp.async and the intermediates in shared memory as
+  [y][x][c]; a persistent grid whose blocks keep the weights (Co 16, 32)
+  or stage each conv's (Co 64). Built for Co 16, 32 and 64; the staged
+  input tile caps Ci (``STEM_MAX_CI_BF16``) except for Ci <= 4, the RGB
+  input, whose three taps of a kernel row are one k16 step.
+- float32: CUDA-core multiply-adds (TF32 would break the 1e-5 equality
+  with the plain version), one thread all Co sums of a position, built
+  for Co 16 and 32 (at Co 64 its shared memory does not fit).
 """
 
 from __future__ import annotations
@@ -28,8 +41,13 @@ from qpwcnet_torch.ops.activations import mish
 from qpwcnet_torch.ops.cuda import _build
 from qpwcnet_torch.quantize.qlayers import conv2d_same
 
-# Output channel counts the kernel is compiled for (encoder stages 0, 1).
-STEM_CHANNELS = (16, 32)
+# Output channel counts each body is compiled for (encoder stages 0-2 in
+# bf16, 0-1 in float32).
+STEM_CHANNELS = {torch.float32: (16, 32), torch.bfloat16: (16, 32, 64)}
+# The largest Ci > 4 of the bf16 body by Co: its staged input tile, the two
+# intermediates and the weights fill the block's 227 KB of shared memory
+# (csrc/stem.cu:StemCfg::smem); Ci <= 4 always fits.
+STEM_MAX_CI_BF16 = {16: 32, 32: 16, 64: 32}
 
 Params = Sequence[tuple[torch.Tensor, torch.Tensor]]
 
@@ -71,17 +89,25 @@ def downconv_stage_cuda(x: torch.Tensor, params: Params,
     _check_even(x)
     b, h, w, c_in = x.shape
     c_out = params[0][0].shape[0]
-    if c_out not in STEM_CHANNELS:
-        raise ValueError(f"the CUDA stem kernel is built for {STEM_CHANNELS}"
+    built = STEM_CHANNELS.get(dtype, ())
+    if c_out not in built:
+        raise ValueError(f"the {dtype} CUDA stem kernel is built for {built}"
                          f" output channels, got {c_out}")
+    if (dtype == torch.bfloat16 and c_in > 4
+            and c_in > STEM_MAX_CI_BF16[c_out]):
+        raise ValueError(f"the bf16 stem kernel takes at most "
+                         f"{STEM_MAX_CI_BF16[c_out]} input channels (or at "
+                         f"most 4) at Co={c_out}, got {c_in}")
     _build.require(x, "x", dtype=dtype)
-    # Weights as [ci][ky][kx][co] in the compute dtype.
+    # The kernel reads the stored float32 layout (OIHW weights) and rounds
+    # to dtype itself: no copy for float32 parameters.
     args = []
-    for weight, bias in params:
-        args += [weight.to(dtype).permute(1, 2, 3, 0).contiguous(),
-                 bias.to(dtype).contiguous()]
-    for i, t in enumerate(args):
-        _build.require(t, f"param {i}", device=x.device)
+    for k, (weight, bias) in enumerate(params):
+        wt, bt = weight.float(), bias.float()
+        _build.require(wt, f"weight {k}", (c_out, c_in if k == 0 else c_out,
+                                           3, 3), device=x.device)
+        _build.require(bt, f"bias {k}", (c_out,), device=x.device)
+        args += [wt, bt]
     out = torch.empty((b, h // 2, w // 2, c_out), dtype=dtype,
                       device=x.device)
     lib = _build.library()

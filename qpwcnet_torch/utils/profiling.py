@@ -28,7 +28,7 @@ CATEGORIES = (
     ("K3", r"correlate_kernel<[^>]*, true>"),
     ("K4a", r"cv_bwd_kernel<[^>]*, false>"),
     ("K4b", r"cv_bwd_kernel<[^>]*, true>"),
-    ("K2", r"qpw::stem_kernel"),
+    ("K2", r"qpw::stem_(mma_)?kernel"),
     ("K5", r"qpw::upconv_(mma_)?kernel"),
     ("optimizer", r"multi_tensor|[Aa]dam"),
     ("cuDNN", r"cudnn|conv|xmma|implicit|gemm|cutlass|nchwToNhwc|nhwcToNchw"),

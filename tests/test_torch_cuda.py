@@ -129,6 +129,98 @@ def test_downconv_stage_kernel(dev, dtype, cin, cout):
     assert downconv_stage_cuda.launches == 1
 
 
+def _stem_params(rng, dev, cin, cout):
+    return [(_rand(rng, (cout, c, 3, 3), dev, scale=(9 * c) ** -0.5),
+             _rand(rng, (cout,), dev, scale=0.1)) for c in (cin, cout, cout)]
+
+
+def _check_stem(dev, dtype, shape, cout, seed):
+    """One K2 launch against its plain version: float32 within 1e-5 of
+    the magnitude, bf16 within four ulps (a one-ulp flip in conv_a or
+    conv_aa propagates through the later convs)."""
+    rng = np.random.RandomState(seed)
+    x = _rand(rng, shape, dev, dtype, scale=0.5)
+    params = _stem_params(rng, dev, shape[-1], cout)
+    kernels.reset_launch_counts()
+    got = downconv_stage_cuda(x, params, dtype)
+    want = downconv_stage_plain(x, params, dtype)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (shape[0], shape[1] // 2,
+                                       shape[2] // 2, cout)
+    assert bool(torch.isfinite(got.float()).all())
+    err = float((got.float() - want.float()).abs().max())
+    ulps = 4 if dtype == torch.bfloat16 else 1
+    assert err <= ulps * REL[dtype] * max(1.0,
+                                          float(want.float().abs().max()))
+    assert downconv_stage_cuda.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(3, 16), (16, 32), (32, 64),
+                                      (3, 32), (3, 64)])
+def test_downconv_stage_kernel_bf16_widths(dev, cin, cout):
+    """The bf16 tensor-core body at the widths of encoder stages 0-2 (the
+    RGB input's packed taps at Ci 3, then Ci 16 and 32 staged by
+    cp.async), and the packed taps at the other two widths."""
+    _check_stem(dev, torch.bfloat16, (2, 38, 70, cin), cout, seed=13)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cout", [
+    ((8, 256, 512, 3), 16),   # 512 tiles: more than the persistent grid
+    ((4, 256, 256, 16), 32),  # holds, so each block walks several
+    ((1, 64, 128, 3), 16),    # batch 1
+    ((1, 64, 128, 16), 32),
+    ((3, 38, 70, 16), 32),    # no tile multiple
+    ((2, 30, 46, 20), 16),    # Ci 20: element loads, padded to 32
+])
+def test_downconv_stage_kernel_grid(dev, dtype, shape, cout):
+    _check_stem(dev, dtype, shape, cout, seed=14)
+
+
+@pytest.mark.cuda
+def test_downconv_stage_kernel_co64_grid(dev):
+    """bf16 at Co 64 with more 8 x 16 tiles than resident blocks; each
+    block stages every conv's weights for every tile."""
+    _check_stem(dev, torch.bfloat16, (4, 128, 256, 32), 64, seed=15)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_downconv_stage_launches_one_kernel(dev, dtype):
+    """A call launches K2 and nothing else: the kernel reads the stored
+    float32 weights and biases, so no cast or permute runs before it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.RandomState(16)
+    x = _rand(rng, (2, 64, 128, 16), dev, dtype, scale=0.5)
+    params = _stem_params(rng, dev, 16, 32)
+    downconv_stage_cuda(x, params, dtype)  # builds the library
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        downconv_stage_cuda(x, params, dtype)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "stem" in names[0], names
+    assert downconv_stage_cuda.launches == 1
+
+
+@pytest.mark.cuda
+def test_downconv_stage_raises_for_unbuilt_widths(dev):
+    rng = np.random.RandomState(17)
+    kernels.reset_launch_counts()
+    for dtype, cin, cout in ((torch.bfloat16, 64, 128),
+                             (torch.float32, 32, 64),
+                             (torch.bfloat16, 20, 32)):
+        x = _rand(rng, (1, 8, 16, cin), dev, dtype)
+        with pytest.raises(ValueError):
+            downconv_stage_cuda(x, _stem_params(rng, dev, cin, cout), dtype)
+    assert downconv_stage_cuda.launches == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 13, 37, 20), (1, 9, 21, 72)])

@@ -20,6 +20,7 @@ from qpwcnet_torch.models import build_flow_net, load_flax_variables
 from qpwcnet_torch.models.pwcnet import Decoder
 from qpwcnet_torch.ops.cuda import upconv_kernel
 from qpwcnet_torch.ops.cuda.upconv_kernel import (
+    UPCONV_CHANNELS,
     upconv_stage_cuda,
     upconv_stage_plain,
     upconv_stage_trainable,
@@ -148,9 +149,17 @@ def test_decoder_upconv_stages_match_jax_reference(flow_setup):
 
 @pytest.mark.parametrize("n,ok", [(2, True), (3, False)])
 def test_decoder_upconv_stages_need_kernel_widths(n, ok):
-    """Only the 32- and 16-channel stages (the last two) have a kernel."""
-    if ok:
-        assert Decoder(upconv_stages=n).upconv_stages == n
-    else:
-        with pytest.raises(ValueError):
-            Decoder(upconv_stages=n)
+    """Any stage count builds, as in JAX, and runs on CPU tensors; only
+    the 32- and 16-channel stages (the last two) have a kernel (``ok``:
+    every fused stage has one)."""
+    dec = Decoder(upconv_stages=n)
+    assert dec.upconv_stages == n
+    widths = [st.params()[0][0].shape[1] for st in dec.stages[4 - n:]]
+    assert all(w in UPCONV_CHANNELS for w in widths) == ok
+    encs = [torch.randn(1, c, 32 >> i, 64 >> i).contiguous(
+        memory_format=CHANNELS_LAST)
+        for i, c in enumerate((3, 16, 32, 64, 128, 256))]
+    with torch.no_grad():
+        decs = dec(encs)
+    assert [tuple(d.shape[1:]) for d in decs] == [
+        (256, 2, 4), (128, 4, 8), (64, 8, 16), (32, 16, 32)]
