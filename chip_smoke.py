@@ -7,13 +7,15 @@ frame-interpolation paths on one CUDA card.
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. device: the card's name and power limit; TF32 off.
   2. build: nvcc-builds qpwcnet_torch/csrc/*.cu (sm_90a, one nvcc per
-     source, all at once) and loads the library; K2's and K5's bf16
+     source, all at once) and loads the library; K1's, K2's and K5's bf16
      kernels must issue tensor-core instructions (HMMA in cuobjdump's
-     SASS), every instantiation.
+     SASS), every instantiation, and K1's float32 body none.
   3. kernel equality: each CUDA kernel against its plain PyTorch version
      at the headline shapes (448x1024 input, batch 8, so 2B = 16 through
      the encoder), at batch 1 (the infer app's) and at one shape that is
-     no tile multiple, in float32 and bf16 (K2 also at a ragged Co 32
+     no tile multiple, in float32 and bf16 (K1 also at the five levels of
+     the training configuration, at C = 20 and on a map smaller than one
+     tile; K2 also at a ragged Co 32
      shape, and in bf16 at encoder stage 2's Co 64, which float32 must
      refuse); the cost-volume backward
      kernels K4a and K4b at the five cost-volume levels of the training
@@ -27,11 +29,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
   4. slice: PWCFlowNet at 448x1024 b8 with seeded, non-zero flow heads,
      exact and 'fast', against the plain model (stem_stages=0,
      cv_impl='plain') in bf16 and float32, with each kernel's launch
-     count per forward and the device kernels of one bf16 forward
-     (torch.profiler); the float32 model on the card against the same
-     model on the CPU at a small shape; then the infer app
-     (qpwcnet_torch.apps.infer, --fast, 2 requests at 448x1024) as the
-     first main path.
+     count per forward and the device kernels of one bf16 forward, with
+     K1's and K2's device time (torch.profiler); the float32 model on
+     the card against the same model on the CPU at a small shape; then
+     the infer app (qpwcnet_torch.apps.infer, --fast, 2 requests at
+     448x1024) as the first main path.
   4b. train slice at 256x512 b16 (the JAX bench's training
      configuration): one train step of the exact, 'fast' and plain models
      (seeded flow heads, and a fresh 'diag' model whose flows are zero),
@@ -55,7 +57,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      its plain version at the headline shapes (K4a and K4b at the training
      levels, K5 at its six shapes, with its achieved GB/s), beside its
      bound and, for K2 and K5, the cuDNN call computing the same product
-     (K2 and K5 also chained, with their achieved GB/s); the flow
+     (K1, K2 and K5 also chained, with their achieved GB/s; K1 also its
+     device time by torch.profiler, since the host's time per call
+     exceeds the coarse levels' card time); the flow
      forward, the flow train step, the interpolator forward and the
      pretraining step; K5's in-model effect (upconv_stages 0 beside 2:
      the interpolator's forward and pretraining step, the exact flow
@@ -316,9 +320,9 @@ def phase_build():
 
 
 def sass_tensor_cores(lib_path, bin_dir) -> None:
-    """Count tensor-core (HMMA) instructions in K2's and K5's kernels in
-    the built library's SASS: each bf16 instantiation must issue them, the
-    float32 bodies (CUDA-core FMAs) none."""
+    """Count tensor-core (HMMA) instructions in K1's, K2's and K5's
+    kernels in the built library's SASS: each bf16 instantiation must
+    issue them, and K1's float32 body (CUDA-core FMAs) none."""
     import re
 
     cuobjdump = bin_dir / "cuobjdump"
@@ -334,8 +338,13 @@ def sass_tensor_cores(lib_path, bin_dir) -> None:
             counts[name] = 0
         elif name and "HMMA" in line:
             counts[name] += 1
-    mma, f32, stem, stem32 = {}, {}, {}, {}
+    mma, f32, stem, stem32, cv, cv32 = {}, {}, {}, {}, {}, {}
     for name, n in counts.items():
+        m = re.search(r"cost_volume_mma_kernelILi(\d+)ELi(\d+)E", name)
+        if m:
+            cv[f"{m[1]} rows, {9 // int(m[2])} di a warp"] = n
+        if re.search(r"correlate_kernelIfLb0E", name):
+            cv32["correlate_kernel<float, false>"] = n
         m = re.search(r"upconv_mma_kernelILi(\d+)ELi(\d+)E", name)
         if m:
             mma[f"Co {m[1]}, {m[2]} phases"] = n
@@ -348,8 +357,13 @@ def sass_tensor_cores(lib_path, bin_dir) -> None:
         m = re.search(r"stem_kernelILi(\d+)E", name)
         if m:
             stem32[f"Co {m[1]}"] = n
+    log(f"  SASS HMMA count: K1 bf16 {cv}, K1 float32 {cv32}")
     log(f"  SASS HMMA count: K5 bf16 {mma}, K5 float32 {f32}")
     log(f"  SASS HMMA count: K2 bf16 {stem}, K2 float32 {stem32}")
+    check(len(cv) == 3 and all(n > 0 for n in cv.values()),
+          f"K1's bf16 body issues no HMMA: {cv}")
+    check(len(cv32) == 1 and all(n == 0 for n in cv32.values()),
+          f"K1's float32 body is not the CUDA-core one: {cv32}")
     check(len(mma) == 4 and all(n > 0 for n in mma.values()),
           f"K5's bf16 body issues no HMMA: {mma}")
     check(len(stem) == 6 and all(n > 0 for n in stem.values()),
@@ -379,9 +393,12 @@ def phase_kernels(dev):
     for dtype in (torch.float32, torch.bfloat16):
         rel = REL_F32 if dtype == torch.float32 else REL_BF16
         dn = str(dtype).split(".")[-1]
-        # batch 8 (the headline) and 1 (the infer app's requests)
+        # batch 8 (the headline) and 1 (the infer app's requests), the
+        # train step's levels, odd shapes (C % 8 != 0: element-wise
+        # staging; a map smaller than one tile)
         cases = ([(b, *lv) for b in (B, 1) for lv in CV_LEVELS]
-                 + [(3, 13, 37, 24)])
+                 + [(TRAIN_B, *lv) for lv in TRAIN_LEVELS]
+                 + [(3, 13, 37, 24), (2, 13, 37, 20), (1, 5, 7, 32)])
         for b, h, w, c in cases:
             prv, nxt = rand((b, h, w, c), dtype), rand((b, h, w, c), dtype)
             compare(f"K1 cost_volume {dn} ({b},{h},{w},{c})",
@@ -620,9 +637,11 @@ def phase_slice(dev):
                 for mode in ("exact", "fast"):
                     prof = breakdown(lambda: models[mode, dtype](x), n=1,
                                      warmup=1)
+                    cats = prof["by_category"]
                     log(f"  {mode} {dn}: {prof['kernels']:.0f} device "
-                        f"kernels a forward (torch.profiler), K2 "
-                        f"{prof['by_category'].get('K2', 0.0):.3f} ms of "
+                        f"kernels a forward (torch.profiler), K1 "
+                        f"{cats.get('K1', 0.0):.3f} ms and K2 "
+                        f"{cats.get('K2', 0.0):.3f} ms of "
                         f"{prof['busy_ms']:.3f} busy ms")
             # the flow entering the finest UpFlow, where 'fast' clamps
             ms = models["plain", dtype](x, multiscale=True)
@@ -1170,6 +1189,7 @@ def phase_times(dev, x, batch, ibatch):
     from qpwcnet_torch.ops.cuda.warp_cv_kernel import (
         warp_cost_volume_cuda, warp_cost_volume_plain)
     from qpwcnet_torch.quantize.qlayers import same_pads
+    from qpwcnet_torch.utils.profiling import breakdown
 
     log(f"== phase 5: times (bf16, CUDA events, median of {N_TIMED} after "
         "warm-up; order plain, kernel, kernel, plain, reported the mean "
@@ -1197,13 +1217,30 @@ def phase_times(dev, x, batch, ibatch):
 
     totals = Totals()
     with torch.inference_mode():
+        # K1 at the five levels: one call (the kernels line), chained x20
+        # and the device time alone (torch.profiler)
+        chained = device = 0.0
         for h, w, c in CV_LEVELS:
             prv, nxt = rand((B, h, w, c)), rand((B, h, w, c))
             bnd = bound_cv(B, h, w, c)
-            k, p, _ = ab(f"K1 cost_volume ({B},{h},{w},{c})",
-                         lambda: cost_volume_cuda(prv, nxt),
+            tag = f"K1 cost_volume ({B},{h},{w},{c})"
+            k, p, _ = ab(tag, lambda: cost_volume_cuda(prv, nxt),
                          lambda: cost_volume_plain(prv, nxt), bnd)
             totals.add("cost_volume", k, p, bnd)
+            kc = time_chain_ms(lambda: cost_volume_cuda(prv, nxt))
+            kd = breakdown(lambda: cost_volume_cuda(prv, nxt), n=20)[
+                "by_category"]["K1"]
+            chained, device = chained + kc, device + kd
+            nbytes = bnd[0] * 1e-3 * PEAK_BYTES
+            log(f"    {tag}: one call {nbytes / (k * 1e-3) / 1e9:.1f} GB/s; "
+                f"chained x20 {kc:.4f} ms, x{kc / max(bnd):.2f} the bound, "
+                f"{nbytes / (kc * 1e-3) / 1e9:.1f} GB/s; device "
+                f"{kd:.4f} ms, x{kd / max(bnd):.2f} the bound, "
+                f"{nbytes / (kd * 1e-3) / 1e9:.1f} GB/s")
+        r = totals.rows["cost_volume"]
+        log(f"  K1 over the five levels: one call {r['ms']:.4f} ms, chained "
+            f"{chained:.4f} ms, device {device:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms")
         # K2 at encoder stages 0 and 1 of the headline (the kernels line
         # sums these two) and stage 2 (Co 64, stem_stages=3)
         beats = []

@@ -1,5 +1,7 @@
-// The 81-offset correlation shared by the cost-volume kernel (K1,
-// cost_volume.cu) and the fused warp+correlate kernel (K3, warp_cv.cu).
+// The 81-offset correlation on the CUDA cores: K1's float32 body
+// (cost_volume.cu) and the fused warp+correlate kernel K3 (warp_cv.cu) in
+// both dtypes. K1's bf16 body runs on the tensor cores instead
+// (cost_volume.cu: cost_volume_mma_kernel).
 //
 //   out[b,y,x,k] = leaky_relu_0.1((1/C) * sum_c prv[b,y,x,c] * src[b,y+di,x+dj,c])
 //   di, dj in [-4, 4], k = (di+4)*9 + (dj+4), src zero outside the image,
@@ -14,6 +16,15 @@
 // reads consecutive addresses. Under WARP the window is produced by a
 // 4-corner bilinear gather from nxt instead of a copy; the corner origin
 // and weights of each window position are computed once per block.
+//
+// What bounds it on the H100: not device memory (a level's maps are read
+// about once, the halo's re-reads hit L2) but the shared-memory operand
+// loads, one per FMA (81 loads for a pixel's 81 FMAs a channel), and the
+// staging: scalar 2- or 4-byte loads, a chunk of 8 channels between two
+// barriers, no copy in flight during the FMAs, and each thread storing its
+// own 81 outputs 81 elements from its neighbour's. K1 in float32 stays
+// here because its products must be float32 (TF32 is not within 1e-5 of
+// the plain version); K3 waits for a redesign like K1's bf16 body.
 #pragma once
 
 #include "common.cuh"

@@ -1,6 +1,7 @@
 // Tensor-core and asynchronous-copy helpers of the bf16 kernel bodies
-// (K2 stem_mma_kernel, K5 upconv_mma_kernel): shared-memory addresses,
-// cp.async 16-byte copies, ldmatrix operand loads and mma.sync m16n8k16.
+// (K1 cost_volume_mma_kernel, K2 stem_mma_kernel, K5 upconv_mma_kernel):
+// shared-memory addresses, cp.async 16-byte copies, ldmatrix operand loads
+// and mma.sync m16n8k16.
 #pragma once
 
 #include <stdint.h>
@@ -29,11 +30,24 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
+// Wait until at most N of this thread's committed copy groups are pending
+// (the ring's next chunk may stay in flight).
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&d)[4], uint32_t a) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
       : "r"(a));
+}
+
+// Two 8x8 b16 matrices; lanes 0-15 give the row addresses.
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&d)[2], uint32_t a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(d[0]), "=r"(d[1])
+               : "r"(a));
 }
 
 // d += a (16x16, row) * b (16x8, col), bf16 operands, float32 sums.

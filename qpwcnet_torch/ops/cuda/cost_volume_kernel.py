@@ -1,6 +1,6 @@
 """K1: the cost-volume forward, and K4a / K4b: its backward, as CUDA
 kernels (``csrc/cost_volume.cu``, ``csrc/correlate.cuh``,
-``csrc/cost_volume_bwd.cu``).
+``csrc/mma.cuh``, ``csrc/cost_volume_bwd.cu``).
 
 Replaces: ``qpwcnet_tpu/ops/pallas/cost_volume_kernel.py:_cv_kernel``
 (via ``_cost_volume_pallas_impl``), ``_cv_bwd_prv_kernel`` (via
@@ -8,19 +8,31 @@ Replaces: ``qpwcnet_tpu/ops/pallas/cost_volume_kernel.py:_cv_kernel``
 ``_cv_bwd_nxt_impl``). ``ops/cost_volume.py:CostVolumeFunction`` joins
 them into the trainable op.
 
-What bounds K1 on the H100: the plain version reads the padded nxt map
-once per displacement (81 times) and writes 81 float32 planes before the
-stack; the work itself is 81·C multiply-adds per pixel. The kernel reads
-prv and nxt once per tile (the 9-row, 8-column halo re-read hits L2) and
-writes the 81 outputs once, so it is bounded by shared-memory loads in
-the correlation loop (81 loads per 81 FMAs per channel), not by device
-memory. Tensor cores are not used: the correlation is a banded product,
-and making it a dense one is later work.
+What bounds K1 on the H100: bytes. A pixel reads 2·C input values and
+writes 81 (at C = 32, 128 bytes in and 162 out in bf16), for 81·C
+multiply-adds: 18 to 80 operations a byte over the model's levels, under
+the tensor cores' ridge (~295) and not under the CUDA cores' (~20). The
+plain version reads the padded nxt map once per displacement (81 times)
+and writes 81 float32 planes before the stack.
 
-K4a and K4b have the same bound and the same design with the roles
-swapped: each thread holds the 81 dacc coefficients of its output pixel
-in registers and correlates them against a shared-memory window of the
-C-channel map, one channel chunk at a time; the plain versions make 81
+bf16 runs ``cost_volume_mma_kernel`` (``csrc/cost_volume.cu``, whose note
+has the whole design) on the tensor cores: for 8 pixels of a row and one
+displacement row, the nine offsets are the band of one 16 x 8
+``mma.sync`` product of 16 nxt window columns (M) by the 8 prv pixels
+(N) over the channels; a warp holds a 16-pixel run, a block stages the
+prv tile and the haloed nxt window by ``cp.async`` in a two-stage ring
+and stores each row's 81-value outputs by 16-byte stores from a shared
+tile; smaller tiles keep the coarse levels spread over the SMs. float32
+runs the CUDA-core ``correlate_kernel<float, false>``
+(``csrc/correlate.cuh``; one pixel a thread, bound by its shared-memory
+loads), since TF32 products would not stay within 1e-5 of the plain
+version.
+
+K4a and K4b have K1's bound and the CUDA-core design of its float32
+body with the roles swapped: each thread holds the 81 dacc coefficients
+of its output pixel in registers and correlates them against a
+shared-memory window of the C-channel map, one channel chunk at a time;
+the plain versions make 81
 float32 passes over (B, H, W, C) maps. K4b is the scatter of dacc·prv
 onto the displaced pixels written as a gather (each output pixel reads
 its 81 source pixels), so it needs no atomics and sums in a fixed order.

@@ -24,7 +24,8 @@ import torch
 
 # (category, pattern of the demangled kernel name); the first match wins
 CATEGORIES = (
-    ("K1", r"correlate_kernel<[^>]*, false>"),
+    # K1: the float32 body (CUDA cores) and the bf16 body (tensor cores)
+    ("K1", r"correlate_kernel<[^>]*, false>|cost_volume_mma_kernel"),
     ("K3", r"correlate_kernel<[^>]*, true>"),
     ("K4a", r"cv_bwd_kernel<[^>]*, false>"),
     ("K4b", r"cv_bwd_kernel<[^>]*, true>"),

@@ -83,11 +83,71 @@ def _assert_close(got, want):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cost_volume_kernel(dev, dtype):
-    rng = np.random.RandomState(0)
-    prv = _rand(rng, (2, 13, 37, 20), dev, dtype)
-    nxt = _rand(rng, (2, 13, 37, 20), dev, dtype)
+    _check_cost_volume(dev, (2, 13, 37, 20), dtype)
+
+
+def _check_cost_volume(dev, shape, dtype=torch.bfloat16, seed=0):
+    rng = np.random.RandomState(seed)
+    prv = _rand(rng, shape, dev, dtype)
+    nxt = _rand(rng, shape, dev, dtype)
     kernels.reset_launch_counts()
     _assert_close(cost_volume_cuda(prv, nxt), cost_volume_plain(prv, nxt))
+    assert cost_volume_cuda.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [20, 24, 32, 64, 128, 256])
+def test_cost_volume_kernel_bf16_widths(dev, c):
+    """The tensor-core body at every channel count the models use and at
+    C % 8 != 0 (element-wise staging) and C % 32 != 0 (a zero-filled
+    channel tail), on a map that is no tile multiple."""
+    _check_cost_volume(dev, (2, 13, 37, c), seed=c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (1, 30, 70, 32),     # batch 1
+    (1, 5, 7, 32),       # smaller than one tile
+    (3, 5, 7, 20),       # smaller than one tile, element-wise staging
+    (16, 64, 128, 64),   # more tiles than resident blocks: blocks loop
+    (40, 13, 37, 40),    # a ring across tiles of two chunks, one partial
+])
+def test_cost_volume_kernel_bf16_grid(dev, shape):
+    _check_cost_volume(dev, shape, seed=sum(shape))
+
+
+@pytest.mark.cuda
+def test_cost_volume_kernel_bf16_unaligned_views(dev):
+    """Inputs that start off a 16-byte boundary take the element-wise
+    staging; an output row that does so is stored around its ends."""
+    rng = np.random.RandomState(3)
+    n = 2 * 13 * 37 * 24
+    flat = _rand(rng, (n + 4,), dev, torch.bfloat16)
+    prv, nxt = flat[4:].view(2, 13, 37, 24), flat[:-4].view(2, 13, 37, 24)
+    _assert_close(cost_volume_cuda(prv, nxt), cost_volume_plain(prv, nxt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cost_volume_launches_one_kernel(dev, dtype):
+    """A call launches one device kernel: the tensor-core body in bf16,
+    the CUDA-core correlate_kernel in float32."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.RandomState(18)
+    prv = _rand(rng, (2, 56, 128, 128), dev, dtype)
+    nxt = _rand(rng, (2, 56, 128, 128), dev, dtype)
+    cost_volume_cuda(prv, nxt)  # builds the library
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cost_volume_cuda(prv, nxt)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    body = ("cost_volume_mma_kernel" if dtype == torch.bfloat16
+            else "correlate_kernel<float, false>")
+    assert len(names) == 1 and body in names[0], names
     assert cost_volume_cuda.launches == 1
 
 

@@ -5,14 +5,16 @@ The CUDA kernels themselves run only on the card (tests/test_torch_cuda.py
 and chip_smoke.py compare each with its plain version there); here each
 plain version is held against the JAX function its kernel replaces:
 
+  * K1 ``cost_volume_plain`` vs ``cost_volume_pallas(interpret=True)``
+    (and vs ``cost_volume_xla`` in tests/test_torch_ops.py);
   * K2 ``downconv_stage_plain`` vs ``downconv_stage_pallas(interpret=True)``
     and ``DownConv.apply``;
   * K3 ``warp_cost_volume_plain`` vs ``cost_volume_xla(prv,
     backward_warp(nxt, clip(flow, ±ww)))``, the identity of
     ``warp_cv_kernel.py:27-31``.
 
-(K1's plain version is ``cost_volume_plain``, held against
-``cost_volume_xla`` in tests/test_torch_ops.py.)
+Also: the CPU dispatch rule of the wrappers, and the profiler's category
+of each kernel's device name.
 """
 
 import jax
@@ -23,6 +25,7 @@ import torch
 
 from qpwcnet_tpu.models.blocks import DownConv
 from qpwcnet_tpu.ops.cost_volume import cost_volume_xla
+from qpwcnet_tpu.ops.pallas.cost_volume_kernel import cost_volume_pallas
 from qpwcnet_tpu.ops.pallas.stem_kernel import downconv_stage_pallas
 from qpwcnet_tpu.ops.warp import backward_warp
 from qpwcnet_torch.models import build_flow_net
@@ -42,6 +45,7 @@ from qpwcnet_torch.ops.cuda.warp_cv_kernel import (
     warp_cost_volume_cuda,
     warp_cost_volume_plain,
 )
+from qpwcnet_torch.utils.profiling import category
 
 BF16_ROUNDOFF = 2.0 ** -8  # half a bf16 ulp, relative
 
@@ -69,6 +73,66 @@ def _stage(h, w, cin, cout, seed):
                _t(v["params"][n]["bias"]))
               for n in ("conv_a", "conv_aa", "conv_b")]
     return m, v, x, params
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 8, 16, 32), (2, 9, 37, 20)])
+def test_cost_volume_plain_matches_pallas_kernel(shape, dtype):
+    """K1's plain version against the TPU kernel itself. The kernel
+    rounds each product prv * roi to the input dtype before its float32
+    sum; the plain version (and the card's bf16 body) sums exact products.
+    float32: sums in another order, 1e-6 of the magnitude; bf16: one bf16
+    ulp (the rounded products differ by about a sixteenth of one)."""
+    rng = np.random.RandomState(sum(shape))
+    prv, nxt = (rng.standard_normal(shape).astype(np.float32)
+                for _ in range(2))
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    got = cost_volume_plain(_t(prv, tdt), _t(nxt, tdt))
+    want = cost_volume_pallas(jnp.asarray(prv).astype(jdt),
+                              jnp.asarray(nxt).astype(jdt), interpret=True)
+    assert got.shape == shape[:3] + (81,) and got.dtype == tdt
+    assert want.dtype == jdt
+    rel = 1e-6 if dtype == "float32" else 2.0 ** -7
+    assert _max_err(got, want) <= rel * max(1.0, float(np.max(np.abs(want))))
+
+
+# Each kernel's device name as torch.profiler reports it (the demangled
+# symbol) and its id in the profiler's breakdown.
+KERNEL_NAMES = [
+    ("void qpw::correlate_kernel<float, false>(float const*, float const*, "
+     "float const*, float*, int, int, int, float)", "K1"),
+    ("void qpw::cost_volume_mma_kernel<8, 1>(__nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, __nv_bfloat16*, int, int, int, int, int, int, "
+     "int)", "K1"),
+    ("void qpw::cost_volume_mma_kernel<2, 9>(__nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, __nv_bfloat16*, int, int, int, int, int, int, "
+     "int)", "K1"),
+    ("void qpw::stem_kernel<32>(float const*, float const*, float const*, "
+     "float const*, float const*, float const*, float const*, float*, int, "
+     "int, int)", "K2"),
+    ("void qpw::stem_mma_kernel<16, true>(__nv_bfloat16 const*, float "
+     "const*, float const*, float const*, float const*, float const*, float "
+     "const*, __nv_bfloat16*, int, int, int, int, int, int, int, int)", "K2"),
+    ("void qpw::correlate_kernel<__nv_bfloat16, true>(__nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, float const*, __nv_bfloat16*, int, int, int, "
+     "float)", "K3"),
+    ("void qpw::correlate_kernel<float, true>(float const*, float const*, "
+     "float const*, float*, int, int, int, float)", "K3"),
+    ("void qpw::cv_bwd_kernel<__nv_bfloat16, false>(__nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, __nv_bfloat16*, int, int, int, int)", "K4a"),
+    ("void qpw::cv_bwd_kernel<float, true>(float const*, float const*, "
+     "float*, int, int, int, int)", "K4b"),
+    ("void qpw::upconv_kernel<16>(float const*, float const*, float const*, "
+     "float*, int, int, int)", "K5"),
+    ("void qpw::upconv_mma_kernel<32, 4>(__nv_bfloat16 const*, float const*, "
+     "float const*, __nv_bfloat16*, int, int, int, int, int, int, int, int)",
+     "K5"),
+]
+
+
+@pytest.mark.parametrize("name,kernel", KERNEL_NAMES)
+def test_profiler_category_of_each_kernel(name, kernel):
+    assert category(name) == kernel
 
 
 @pytest.mark.parametrize("h,w,cin,cout", [(16, 24, 3, 16), (12, 20, 16, 32)])
