@@ -7,9 +7,10 @@ frame-interpolation paths on one CUDA card.
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. device: the card's name and power limit; TF32 off.
   2. build: nvcc-builds qpwcnet_torch/csrc/*.cu (sm_90a, one nvcc per
-     source, all at once) and loads the library; K1's, K2's and K5's bf16
-     kernels must issue tensor-core instructions (HMMA in cuobjdump's
-     SASS), every instantiation, and K1's float32 body none.
+     source, all at once) and loads the library; K1's, K2's, K4a's, K4b's
+     and K5's bf16 kernels must issue tensor-core instructions (HMMA in
+     cuobjdump's SASS), every instantiation, and K1's, K4a's and K4b's
+     float32 bodies none.
   3. kernel equality: each CUDA kernel against its plain PyTorch version
      at the headline shapes (448x1024 input, batch 8, so 2B = 16 through
      the encoder), at batch 1 (the infer app's) and at one shape that is
@@ -19,9 +20,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      shape, and in bf16 at encoder stage 2's Co 64, which float32 must
      refuse); the cost-volume backward
      kernels K4a and K4b at the five cost-volume levels of the training
-     configuration (256x512, batch 16), at batch 1 and at an odd shape,
-     and the trainable cost volume's gradients against autograd of the
-     plain cost volume at the finest training level.
+     configuration (256x512, batch 16), at batch 1, at odd shapes (C % 8
+     != 0 and W no multiple of 16; C = 256 in split channel groups), and
+     the trainable cost volume's gradients against autograd of the plain
+     cost volume at the finest training level.
   3c. K5, the fused decoder UpConv stage, against its plain version at the
      decoder's stages 2 and 3 of the interpolator's training step, of the
      flow headline and of batch 1, and at an odd shape, float32 and bf16;
@@ -57,9 +59,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      its plain version at the headline shapes (K4a and K4b at the training
      levels, K5 at its six shapes, with its achieved GB/s), beside its
      bound and, for K2 and K5, the cuDNN call computing the same product
-     (K1, K2 and K5 also chained, with their achieved GB/s; K1 also its
-     device time by torch.profiler, since the host's time per call
-     exceeds the coarse levels' card time); the flow
+     (K1, K2, K4a, K4b and K5 also chained, with their achieved GB/s;
+     K1, K4a and K4b also their device time by torch.profiler, since the
+     host's time per call exceeds the coarse levels' card time); the flow
      forward, the flow train step, the interpolator forward and the
      pretraining step; K5's in-model effect (upconv_stages 0 beside 2:
      the interpolator's forward and pretraining step, the exact flow
@@ -320,9 +322,10 @@ def phase_build():
 
 
 def sass_tensor_cores(lib_path, bin_dir) -> None:
-    """Count tensor-core (HMMA) instructions in K1's, K2's and K5's
-    kernels in the built library's SASS: each bf16 instantiation must
-    issue them, and K1's float32 body (CUDA-core FMAs) none."""
+    """Count tensor-core (HMMA) instructions in K1's, K2's, K4a's, K4b's
+    and K5's kernels in the built library's SASS: each bf16 instantiation
+    must issue them, and K1's, K4a's and K4b's float32 bodies (CUDA-core
+    FMAs) none."""
     import re
 
     cuobjdump = bin_dir / "cuobjdump"
@@ -339,12 +342,19 @@ def sass_tensor_cores(lib_path, bin_dir) -> None:
         elif name and "HMMA" in line:
             counts[name] += 1
     mma, f32, stem, stem32, cv, cv32 = {}, {}, {}, {}, {}, {}
+    bwd, bwd32 = {}, {}
     for name, n in counts.items():
         m = re.search(r"cost_volume_mma_kernelILi(\d+)ELi(\d+)E", name)
         if m:
             cv[f"{m[1]} rows, {9 // int(m[2])} di a warp"] = n
         if re.search(r"correlate_kernelIfLb0E", name):
             cv32["correlate_kernel<float, false>"] = n
+        m = re.search(r"cv_bwd_mma_kernelILb([01])ELi(\d+)E", name)
+        if m:
+            bwd[("K4b" if m[1] == "1" else "K4a") + f", {m[2]} rows"] = n
+        m = re.search(r"cv_bwd_kernelI(\w+?)Lb([01])E", name)
+        if m:
+            bwd32[("K4b" if m[2] == "1" else "K4a") + f" {m[1]}"] = n
         m = re.search(r"upconv_mma_kernelILi(\d+)ELi(\d+)E", name)
         if m:
             mma[f"Co {m[1]}, {m[2]} phases"] = n
@@ -358,12 +368,18 @@ def sass_tensor_cores(lib_path, bin_dir) -> None:
         if m:
             stem32[f"Co {m[1]}"] = n
     log(f"  SASS HMMA count: K1 bf16 {cv}, K1 float32 {cv32}")
+    log(f"  SASS HMMA count: K4 bf16 {bwd}, K4 float32 {bwd32}")
     log(f"  SASS HMMA count: K5 bf16 {mma}, K5 float32 {f32}")
     log(f"  SASS HMMA count: K2 bf16 {stem}, K2 float32 {stem32}")
     check(len(cv) == 3 and all(n > 0 for n in cv.values()),
           f"K1's bf16 body issues no HMMA: {cv}")
     check(len(cv32) == 1 and all(n == 0 for n in cv32.values()),
           f"K1's float32 body is not the CUDA-core one: {cv32}")
+    check(len(bwd) == 6 and all(n > 0 for n in bwd.values()),
+          f"K4a's and K4b's bf16 body issues no HMMA: {bwd}")
+    check(sorted(bwd32) == ["K4a f", "K4b f"]
+          and all(n == 0 for n in bwd32.values()),
+          f"K4a's and K4b's float32 body is not the CUDA-core one: {bwd32}")
     check(len(mma) == 4 and all(n > 0 for n in mma.values()),
           f"K5's bf16 body issues no HMMA: {mma}")
     check(len(stem) == 6 and all(n > 0 for n in stem.values()),
@@ -471,8 +487,11 @@ def phase_kernels_bwd(dev, errs):
     for dtype in (torch.float32, torch.bfloat16):
         rel = REL_F32 if dtype == torch.float32 else REL_BF16
         dn = str(dtype).split(".")[-1]
+        # the training levels at b16 and b1; odd shapes: W no tile
+        # multiple, C % 8 != 0 (element-wise staging), C = 256 split into
+        # channel groups on a small map
         cases = ([(b, *lv) for b in (TRAIN_B, 1) for lv in TRAIN_LEVELS]
-                 + [(3, 13, 37, 24)])
+                 + [(3, 13, 37, 24), (2, 13, 37, 20), (4, 24, 40, 256)])
         for b, h, w, c in cases:
             dacc = rand((b, h, w, 81), dtype)
             prv, nxt = rand((b, h, w, c), dtype), rand((b, h, w, c), dtype)
@@ -1189,7 +1208,7 @@ def phase_times(dev, x, batch, ibatch):
     from qpwcnet_torch.ops.cuda.warp_cv_kernel import (
         warp_cost_volume_cuda, warp_cost_volume_plain)
     from qpwcnet_torch.quantize.qlayers import same_pads
-    from qpwcnet_torch.utils.profiling import breakdown
+    from qpwcnet_torch.utils.cv_split import device_ms
 
     log(f"== phase 5: times (bf16, CUDA events, median of {N_TIMED} after "
         "warm-up; order plain, kernel, kernel, plain, reported the mean "
@@ -1218,7 +1237,8 @@ def phase_times(dev, x, batch, ibatch):
     totals = Totals()
     with torch.inference_mode():
         # K1 at the five levels: one call (the kernels line), chained x20
-        # and the device time alone (torch.profiler)
+        # and the device time alone (torch.profiler, every one of 20
+        # kernels in its trace)
         chained = device = 0.0
         for h, w, c in CV_LEVELS:
             prv, nxt = rand((B, h, w, c)), rand((B, h, w, c))
@@ -1228,8 +1248,7 @@ def phase_times(dev, x, batch, ibatch):
                          lambda: cost_volume_plain(prv, nxt), bnd)
             totals.add("cost_volume", k, p, bnd)
             kc = time_chain_ms(lambda: cost_volume_cuda(prv, nxt))
-            kd = breakdown(lambda: cost_volume_cuda(prv, nxt), n=20)[
-                "by_category"]["K1"]
+            kd = device_ms(lambda: cost_volume_cuda(prv, nxt))
             chained, device = chained + kc, device + kd
             nbytes = bnd[0] * 1e-3 * PEAK_BYTES
             log(f"    {tag}: one call {nbytes / (k * 1e-3) / 1e9:.1f} GB/s; "
@@ -1291,18 +1310,34 @@ def phase_times(dev, x, batch, ibatch):
                      lambda: warp_cost_volume_plain(prv, nxt, flow), bnd)
         totals.add("warp_cost_volume", k, p, bnd)
         del prv, nxt, flow
-        for name, kern, plain in (
-                ("cost_volume_bwd_prv", cost_volume_bwd_prv_cuda,
+        # K4a and K4b at the five training levels: one call (the kernels
+        # line), chained x20 and the device time alone (torch.profiler)
+        for name, cat, kern, plain in (
+                ("cost_volume_bwd_prv", "K4a", cost_volume_bwd_prv_cuda,
                  cost_volume_bwd_prv_plain),
-                ("cost_volume_bwd_nxt", cost_volume_bwd_nxt_cuda,
+                ("cost_volume_bwd_nxt", "K4b", cost_volume_bwd_nxt_cuda,
                  cost_volume_bwd_nxt_plain)):
+            chained = device = 0.0
             for h, w, c in TRAIN_LEVELS:
                 dacc, src = rand((TRAIN_B, h, w, 81)), rand((TRAIN_B, h, w, c))
                 bnd = bound_cv(TRAIN_B, h, w, c)
-                k, p, _ = ab(f"{name} ({TRAIN_B},{h},{w},{c})",
-                             lambda: kern(dacc, src),
+                tag = f"{cat} {name} ({TRAIN_B},{h},{w},{c})"
+                k, p, _ = ab(tag, lambda: kern(dacc, src),
                              lambda: plain(dacc, src), bnd)
                 totals.add(name, k, p, bnd)
+                kc = time_chain_ms(lambda: kern(dacc, src))
+                kd = device_ms(lambda: kern(dacc, src))
+                chained, device = chained + kc, device + kd
+                nbytes = bnd[0] * 1e-3 * PEAK_BYTES
+                log(f"    {tag}: one call {nbytes / (k * 1e-3) / 1e9:.1f} "
+                    f"GB/s; chained x20 {kc:.4f} ms, x{kc / max(bnd):.2f} the "
+                    f"bound, {nbytes / (kc * 1e-3) / 1e9:.1f} GB/s; device "
+                    f"{kd:.4f} ms, x{kd / max(bnd):.2f} the bound, "
+                    f"{nbytes / (kd * 1e-3) / 1e9:.1f} GB/s")
+            r = totals.rows[name]
+            log(f"  {cat} over the five levels: one call {r['ms']:.4f} ms, "
+                f"chained {chained:.4f} ms, device {device:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms")
         del dacc, src
         # K5 at the six decoder shapes; the kernels line sums the two of
         # the interpolator's training step (its main path)

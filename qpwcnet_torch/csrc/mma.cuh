@@ -1,5 +1,6 @@
 // Tensor-core and asynchronous-copy helpers of the bf16 kernel bodies
-// (K1 cost_volume_mma_kernel, K2 stem_mma_kernel, K5 upconv_mma_kernel):
+// (K1 cost_volume_mma_kernel, K2 stem_mma_kernel, K5 upconv_mma_kernel,
+// K4a/K4b cv_bwd_mma_kernel):
 // shared-memory addresses, cp.async 16-byte copies, ldmatrix operand loads
 // and mma.sync m16n8k16.
 #pragma once
@@ -48,6 +49,25 @@ __device__ __forceinline__ void ldmatrix_x2(uint32_t (&d)[2], uint32_t a) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
                : "=r"(d[0]), "=r"(d[1])
                : "r"(a));
+}
+
+// The same loads transposed: each lane gets a column pair of its matrix,
+// so [k][m] rows in shared memory give the row-major A fragment of [m][k].
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&d)[4],
+                                                  uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&d)[2],
+                                                  uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(d[0]), "=r"(d[1])
+      : "r"(a));
 }
 
 // d += a (16x16, row) * b (16x8, col), bf16 operands, float32 sums.

@@ -28,15 +28,24 @@ runs the CUDA-core ``correlate_kernel<float, false>``
 loads), since TF32 products would not stay within 1e-5 of the plain
 version.
 
-K4a and K4b have K1's bound and the CUDA-core design of its float32
-body with the roles swapped: each thread holds the 81 dacc coefficients
+K4a and K4b have K1's bound, and their bf16 body (``cv_bwd_mma_kernel``
+in ``csrc/cost_volume_bwd.cu``, whose note has the whole design) is K1's
+banded product with the roles swapped: for 8 output pixels of a row and
+one displacement row, the nine offsets are the band of one 16 x 8
+``mma.sync`` product of 16 channels (M) by 16 window columns (K) by the 8
+pixels (N), the band B built in registers from dacc staged by
+``cp.async`` (K4a: dacc at the output pixel; K4b: at the window pixel,
+with the displacement reversed), the window read by ``ldmatrix .trans``.
+Channels are outputs, so a block owns one group of 32 and grid.z runs
+over the groups, which spreads the coarse levels over the SMs without
+atomics. float32 runs the CUDA-core
+``cv_bwd_kernel<float, ...>``: each thread holds the 81 dacc coefficients
 of its output pixel in registers and correlates them against a
-shared-memory window of the C-channel map, one channel chunk at a time;
-the plain versions make 81
-float32 passes over (B, H, W, C) maps. K4b is the scatter of dacc·prv
-onto the displaced pixels written as a gather (each output pixel reads
-its 81 source pixels), so it needs no atomics and sums in a fixed order.
-Products are float32, exact for bf16 inputs (the TPU kernel rounds each
+shared-memory window of the C-channel map. K4b is the scatter of
+dacc·prv onto the displaced pixels written as a gather (each output
+pixel reads its 81 source pixels), so it needs no atomics. The plain
+versions make 81 float32 passes over (B, H, W, C) maps. Products are
+exact and sums float32 in both bodies (the TPU kernel rounds each
 product to the input dtype before its float32 sum).
 """
 

@@ -35,6 +35,8 @@ TILE8 = "if (runs * ((H + 7) / 8) >= 2LL * n_sm)"
 TILE4 = "if (runs * ((H + 3) / 4) >= n_sm)"
 # the variants that compute the cost volume
 COMPUTES = ("full", "tiles 8x1", "tiles 4x3", "tiles 2x9")
+# ~3 ms of the card's clock: longer than the host takes to enqueue 20 calls
+SPIN_CYCLES = 5_000_000
 LEVELS = ((8, 14, 32, 256), (8, 28, 64, 256), (8, 56, 128, 128),
           (8, 112, 256, 64), (8, 224, 512, 32))
 
@@ -56,11 +58,13 @@ def variants(src: str) -> dict[str, str]:
                 TILE4, "if (false)")}
 
 
-def build(srcs: dict[str, str]) -> dict[str, ctypes.CDLL]:
+def build(srcs: dict[str, str], entries=("qpw_cost_volume",),
+          subdir: str = "cv_split") -> dict[str, ctypes.CDLL]:
     """One library a variant, one nvcc each, all started together; each
     variant's namespace is renamed so that its template symbols do not
-    bind to another loaded library's."""
-    out = _build.BUILD_DIR / "cv_split"
+    bind to another loaded library's. ``entries`` are the C entry points
+    to bind (``_build.SIGNATURES``)."""
+    out = _build.BUILD_DIR / subdir
     out.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name, src in srcs.items():
@@ -78,28 +82,42 @@ def build(srcs: dict[str, str]) -> dict[str, ctypes.CDLL]:
         res_out, res_err = proc.communicate()
         _build._require_ok(proc.returncode, cmd, res_out, res_err)
         so = ctypes.CDLL(str(lib))
-        so.qpw_cost_volume.argtypes = _build.SIGNATURES["qpw_cost_volume"]
-        so.qpw_cost_volume.restype = ctypes.c_int
+        for entry in entries:
+            fn = getattr(so, entry)
+            fn.argtypes = _build.SIGNATURES[entry]
+            fn.restype = ctypes.c_int
         libs[name] = so
     return libs
 
 
-def device_ms(fn, n: int = 20) -> float:
-    """Device time a call of fn's one kernel (torch.profiler)."""
+def device_ms(fn, n: int = 20, tries: int = 3) -> float:
+    """Device time a call of fn's one kernel: the mean duration of its
+    kernels in a torch.profiler trace of n calls after 3 warm-up calls,
+    queued behind a spin kernel of a few ms so that the card is busy while
+    tracing starts and the host enqueues the calls. The profiler drops a
+    kernel's record now and then (one or two of 20 in a long-lived
+    process), so the mean is over the records it kept; a window that kept
+    fewer than half, or more than n, is profiled again, up to ``tries``
+    windows."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    if len(events) != n:
-        raise RuntimeError(f"{len(events)} device kernels for {n} calls")
-    return sum(e.time_range.elapsed_us() for e in events) / 1e3 / n
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(SPIN_CYCLES)
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "spin_kernel" not in e.name]
+        if n // 2 <= len(events) <= n:
+            return (sum(e.time_range.elapsed_us() for e in events) / 1e3
+                    / len(events))
+    raise RuntimeError(f"{len(events)} device kernels for {n} calls")
 
 
 def _check(name, shape, got, want) -> None:

@@ -2,8 +2,10 @@
 
     python -m qpwcnet_torch.utils.profiling        # on a CUDA card
 
-profiles the interpolator's bf16 pretraining step at 256x512, batch 8
-(the JAX bench's pretraining configuration), for the kernel model
+profiles the exact bf16 flow train step at 256x512, batch 16 (the JAX
+bench's training configuration; cv_impl='auto', stem_stages=2, the
+plain chain) and the interpolator's bf16 pretraining step at 256x512,
+batch 8 (the JAX bench's pretraining configuration), for the kernel model
 (stem_stages=2, upconv_stages=2) and the plain model, and prints one
 markdown table row each: kernels per step, the host-clock wall of the
 profiled steps, the device busy time (the union of the kernel
@@ -27,8 +29,10 @@ CATEGORIES = (
     # K1: the float32 body (CUDA cores) and the bf16 body (tensor cores)
     ("K1", r"correlate_kernel<[^>]*, false>|cost_volume_mma_kernel"),
     ("K3", r"correlate_kernel<[^>]*, true>"),
-    ("K4a", r"cv_bwd_kernel<[^>]*, false>"),
-    ("K4b", r"cv_bwd_kernel<[^>]*, true>"),
+    # K4a, K4b: the float32 body (CUDA cores) and the bf16 body (tensor
+    # cores)
+    ("K4a", r"cv_bwd_kernel<[^>]*, false>|cv_bwd_mma_kernel<false"),
+    ("K4b", r"cv_bwd_kernel<[^>]*, true>|cv_bwd_mma_kernel<true"),
     ("K2", r"qpw::stem_(mma_)?kernel"),
     ("K5", r"qpw::upconv_(mma_)?kernel"),
     ("optimizer", r"multi_tensor|[Aa]dam"),
@@ -85,6 +89,21 @@ def breakdown(fn, n: int = 3, warmup: int = 3) -> dict:
             "busy_share": busy / wall, "by_category": by_cat}
 
 
+def _flow_train_step(kw: dict, b: int = 16, h: int = 256, w: int = 512):
+    from qpwcnet_torch.data import preprocess_flow_batch, synthetic_flow_batch
+    from qpwcnet_torch.models import build_flow_net
+    from qpwcnet_torch.train import make_flow_train_step, plain_optimizer
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ims, flo = synthetic_flow_batch(gen, b, h, w)
+    batch = preprocess_flow_batch(ims, flo, out_hw=(h, w))
+    model = build_flow_net(0, dev, dtype=torch.bfloat16, **kw)
+    opt = plain_optimizer(model, 1e-4)
+    step = make_flow_train_step(0.0)
+    return lambda: step(model, opt, batch)
+
+
 def _pretraining_step(kw: dict, b: int = 8, h: int = 256, w: int = 512):
     from qpwcnet_torch.data import (
         preprocess_triplet_batch,
@@ -118,10 +137,14 @@ def main() -> int:
     cats = [c for c, _ in CATEGORIES] + ["other"]
     print("| step | kernels/step | profiled wall ms | device busy ms (share)"
           " | " + " | ".join(cats) + " |")
-    for name, kw in (
-            ("exact bf16", dict(stem_stages=2, upconv_stages=2)),
-            ("plain bf16", dict(cv_impl="plain"))):
-        r = breakdown(_pretraining_step(kw))
+    for name, make, kw in (
+            ("flow step exact bf16", _flow_train_step,
+             dict(cv_impl="auto", stem_stages=2)),
+            ("pretraining exact bf16", _pretraining_step,
+             dict(stem_stages=2, upconv_stages=2)),
+            ("pretraining plain bf16", _pretraining_step,
+             dict(cv_impl="plain"))):
+        r = breakdown(make(kw))
         cells = [f"{r['by_category'].get(c, 0.0):.3f}" for c in cats]
         print(f"| {name} | {r['kernels']:.0f} | {r['wall_ms']:.3f} | "
               f"{r['busy_ms']:.3f} ({r['busy_share']:.1%}) | "

@@ -72,6 +72,26 @@ def _rand(rng, shape, dev, dtype=torch.float32, scale=1.0):
     ).to(dev, dtype)
 
 
+def _device_kernels(fn, tries=3):
+    """The names of the device kernels of one fn() call (torch.profiler),
+    with the launch counts reset before it. The profiler now and then
+    drops a short window's device records: a window that recorded none is
+    profiled again, up to ``tries`` windows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        kernels.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
+
+
 def _assert_close(got, want):
     torch.cuda.synchronize()
     assert got.shape == want.shape and got.dtype == want.dtype
@@ -132,19 +152,12 @@ def test_cost_volume_kernel_bf16_unaligned_views(dev):
 def test_cost_volume_launches_one_kernel(dev, dtype):
     """A call launches one device kernel: the tensor-core body in bf16,
     the CUDA-core correlate_kernel in float32."""
-    from torch.profiler import ProfilerActivity, profile
-
     rng = np.random.RandomState(18)
     prv = _rand(rng, (2, 56, 128, 128), dev, dtype)
     nxt = _rand(rng, (2, 56, 128, 128), dev, dtype)
     cost_volume_cuda(prv, nxt)  # builds the library
     torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        cost_volume_cuda(prv, nxt)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = _device_kernels(lambda: cost_volume_cuda(prv, nxt))
     body = ("cost_volume_mma_kernel" if dtype == torch.bfloat16
             else "correlate_kernel<float, false>")
     assert len(names) == 1 and body in names[0], names
@@ -251,19 +264,12 @@ def test_downconv_stage_kernel_co64_grid(dev):
 def test_downconv_stage_launches_one_kernel(dev, dtype):
     """A call launches K2 and nothing else: the kernel reads the stored
     float32 weights and biases, so no cast or permute runs before it."""
-    from torch.profiler import ProfilerActivity, profile
-
     rng = np.random.RandomState(16)
     x = _rand(rng, (2, 64, 128, 16), dev, dtype, scale=0.5)
     params = _stem_params(rng, dev, 16, 32)
     downconv_stage_cuda(x, params, dtype)  # builds the library
     torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        downconv_stage_cuda(x, params, dtype)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = _device_kernels(lambda: downconv_stage_cuda(x, params, dtype))
     assert len(names) == 1 and "stem" in names[0], names
     assert downconv_stage_cuda.launches == 1
 
@@ -298,6 +304,76 @@ def test_cost_volume_bwd_kernels(dev, dtype, shape):
                   cost_volume_bwd_nxt_plain(dacc, prv))
     assert cost_volume_bwd_prv_cuda.launches == 1
     assert cost_volume_bwd_nxt_cuda.launches == 1
+
+
+def _check_bwd(dev, shape, seed, dacc=None, src=None):
+    rng = np.random.RandomState(seed)
+    if dacc is None:
+        dacc = _rand(rng, shape[:3] + (81,), dev, torch.bfloat16)
+        src = _rand(rng, shape, dev, torch.bfloat16)
+    kernels.reset_launch_counts()
+    _assert_close(cost_volume_bwd_prv_cuda(dacc, src),
+                  cost_volume_bwd_prv_plain(dacc, src))
+    _assert_close(cost_volume_bwd_nxt_cuda(dacc, src),
+                  cost_volume_bwd_nxt_plain(dacc, src))
+    assert cost_volume_bwd_prv_cuda.launches == 1
+    assert cost_volume_bwd_nxt_cuda.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [4, 12, 20, 36, 64, 128])
+def test_cost_volume_bwd_kernels_bf16_widths(dev, c):
+    """The tensor-core body at C % 8 != 0 (element-wise staging and
+    stores), C % 32 != 0 (a zero-filled channel tail) and the models'
+    widths, on a map whose W is no multiple of 8."""
+    _check_bwd(dev, (2, 13, 37, c), seed=c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (4, 24, 40, 256),    # C = 256 in split channel groups
+    (2, 8, 16, 256),     # the coarsest level at b2: 2-row tiles, 8 groups
+    (16, 16, 32, 256),   # the training level (16, 32, 256) at b16
+    (1, 5, 7, 32),       # smaller than one tile
+    (1, 1, 1, 8),        # one pixel: every window pixel but one outside
+    (40, 13, 37, 40),    # many tiles, two chunks, the second partial
+])
+def test_cost_volume_bwd_kernels_bf16_grid(dev, shape):
+    _check_bwd(dev, shape, seed=sum(shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 4])
+def test_cost_volume_bwd_kernels_bf16_unaligned_views(dev, offset):
+    """dacc and the map start off a 16-byte boundary (dacc's runs shift;
+    the map is staged and the output stored element-wise), and dacc's
+    first run begins at the tensor's first element."""
+    rng = np.random.RandomState(offset)
+    shape = (2, 13, 37, 24)
+    nd, ns = 2 * 13 * 37 * 81, 2 * 13 * 37 * 24
+    flat = _rand(rng, (nd + ns + 8,), dev, torch.bfloat16)
+    dacc = flat[offset:offset + nd].view(*shape[:3], 81)
+    src = flat[nd + 3:nd + 3 + ns].view(shape)
+    _check_bwd(dev, shape, seed=0, dacc=dacc, src=src)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cost_volume_bwd_launches_one_kernel(dev, dtype):
+    """A call launches one device kernel: the tensor-core body in bf16,
+    the CUDA-core cv_bwd_kernel in float32."""
+    rng = np.random.RandomState(19)
+    dacc = _rand(rng, (2, 32, 64, 81), dev, dtype)
+    src = _rand(rng, (2, 32, 64, 128), dev, dtype)
+    for kern, flag in ((cost_volume_bwd_prv_cuda, "false"),
+                       (cost_volume_bwd_nxt_cuda, "true")):
+        kern(dacc, src)  # builds the library
+        torch.cuda.synchronize()
+        names = _device_kernels(lambda: kern(dacc, src))
+        body = (f"cv_bwd_mma_kernel<{flag}" if dtype == torch.bfloat16
+                else f"cv_bwd_kernel<float, {flag}>")
+        assert len(names) == 1 and body in names[0], names
+        assert kern.launches == 1
 
 
 @pytest.mark.cuda

@@ -11,7 +11,11 @@ plain version is held against the JAX function its kernel replaces:
     and ``DownConv.apply``;
   * K3 ``warp_cost_volume_plain`` vs ``cost_volume_xla(prv,
     backward_warp(nxt, clip(flow, ±ww)))``, the identity of
-    ``warp_cv_kernel.py:27-31``.
+    ``warp_cv_kernel.py:27-31``;
+  * K4a ``cost_volume_bwd_prv_plain`` and K4b ``cost_volume_bwd_nxt_plain``
+    vs ``_cv_bwd_prv_impl`` / ``_cv_bwd_nxt_impl(interpret=True)``, and
+    both vs the banded products that their bf16 CUDA body computes
+    (``csrc/cost_volume_bwd.cu``).
 
 Also: the CPU dispatch rule of the wrappers, and the profiler's category
 of each kernel's device name.
@@ -22,15 +26,24 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from qpwcnet_tpu.models.blocks import DownConv
 from qpwcnet_tpu.ops.cost_volume import cost_volume_xla
-from qpwcnet_tpu.ops.pallas.cost_volume_kernel import cost_volume_pallas
+from qpwcnet_tpu.ops.pallas.cost_volume_kernel import (
+    _cv_bwd_nxt_impl,
+    _cv_bwd_prv_impl,
+    cost_volume_pallas,
+)
 from qpwcnet_tpu.ops.pallas.stem_kernel import downconv_stage_pallas
 from qpwcnet_tpu.ops.warp import backward_warp
 from qpwcnet_torch.models import build_flow_net
 from qpwcnet_torch.ops import cuda as kernels
-from qpwcnet_torch.ops.cost_volume import cost_volume_plain
+from qpwcnet_torch.ops.cost_volume import (
+    cost_volume_bwd_nxt_plain,
+    cost_volume_bwd_prv_plain,
+    cost_volume_plain,
+)
 from qpwcnet_torch.ops.cuda.stem_kernel import (
     downconv_stage_cuda,
     downconv_stage_plain,
@@ -96,6 +109,86 @@ def test_cost_volume_plain_matches_pallas_kernel(shape, dtype):
     assert _max_err(got, want) <= rel * max(1.0, float(np.max(np.abs(want))))
 
 
+# K4a and K4b: each plain version, the TPU kernel that it replaces and
+# the source map it reads (nxt for K4a, prv for K4b)
+BWD = {"prv": (cost_volume_bwd_prv_plain, _cv_bwd_prv_impl),
+       "nxt": (cost_volume_bwd_nxt_plain, _cv_bwd_nxt_impl)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 8, 16, 8), (2, 9, 37, 20)])
+@pytest.mark.parametrize("grad", ["prv", "nxt"])
+def test_cost_volume_bwd_plain_matches_pallas_kernel(grad, shape, dtype):
+    """K4a's and K4b's plain versions against the TPU kernels themselves
+    (cast from their float32 output to the input dtype). The kernels round
+    each product to the input dtype before their float32 sum; the plain
+    versions (and the card's bf16 body) sum exact products. float32: sums
+    in another order, 1e-6 of the magnitude; bf16: one bf16 ulp."""
+    rng = np.random.RandomState(sum(shape) + len(grad))
+    dacc = rng.standard_normal(shape[:3] + (81,)).astype(np.float32)
+    src = rng.standard_normal(shape).astype(np.float32)
+    plain, impl = BWD[grad]
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    got = plain(_t(dacc, tdt), _t(src, tdt))
+    want = impl(jnp.asarray(dacc).astype(jdt), jnp.asarray(src).astype(jdt),
+                interpret=True).astype(jdt)
+    assert got.shape == shape and got.dtype == tdt
+    rel = 1e-6 if dtype == "float32" else 2.0 ** -7
+    assert _max_err(got, want) <= rel * max(1.0, float(np.max(np.abs(want))))
+
+
+def _banded_bwd(dacc, src, reversed_):
+    """K4a (reversed_ False) or K4b (True) as the bf16 CUDA body computes
+    them: for each displacement row i = di + 4 and each group of 8 output
+    pixels x0..x0+7 of a row, the product of the zero-padded 16-column
+    window A[c][q] = src[y ± di, x0 - 4 + q, c] with the band B[q][p],
+    zero off 0 <= q - p <= 8:
+      K4a  B[q][p] = dacc[y, x0 + p, 9i + (q - p)]             (output pixel)
+      K4b  B[q][p] = dacc[y - di, x0 - 4 + q, 9i + 8 - (q - p)] (window pixel)
+    summed over i and scaled by 1/C. float32 in, float32 out."""
+    b, h, w, c = src.shape
+    wp = -(-w // 8) * 8
+    pad = (0, 0, 4, wp - w + 4, 4, 4)  # 4 rows, 4 columns left, to wp + 8
+    psrc, pdacc = F.pad(src, pad), F.pad(dacc, pad)
+    q = torch.arange(16)[:, None]
+    p = torch.arange(8)[None, :]
+    jj = q - p
+    in_band = (jj >= 0) & (jj <= 8)
+    out = torch.zeros(b, h, wp, c)
+    for i in range(9):
+        # padded row of the window (and, for K4b, of dacc): y + di + 4 or
+        # y - di + 4, di = i - 4
+        rows = torch.arange(h) + (8 - i if reversed_ else i)
+        for x0 in range(0, wp, 8):
+            a = psrc[:, rows, x0:x0 + 16, :]                  # (b, h, 16, c)
+            if reversed_:
+                k = 9 * i + 8 - jj.clamp(0, 8)
+                band = pdacc[:, rows][:, :, x0 + q, k]        # (b, h, 16, 8)
+            else:
+                k = 9 * i + jj.clamp(0, 8)
+                band = pdacc[:, 4:4 + h][:, :, x0 + 4 + p, k]
+            band = band * in_band
+            out[:, :, x0:x0 + 8, :] += torch.matmul(
+                a.transpose(-1, -2), band).transpose(-1, -2)
+    return out[:, :, :w] * (1.0 / c)
+
+
+@pytest.mark.parametrize("grad", ["prv", "nxt"])
+def test_cost_volume_bwd_band_decomposition(grad):
+    """The index algebra of the bf16 CUDA body (K4b: the reversed offset,
+    dacc read at the window pixel) against the plain versions, float32,
+    on a map with W not a multiple of 8 and a border on every side."""
+    rng = np.random.RandomState(12)
+    shape = (2, 9, 21, 12)
+    dacc = _t(rng.standard_normal(shape[:3] + (81,)))
+    src = _t(rng.standard_normal(shape))
+    got = _banded_bwd(dacc, src, reversed_=grad == "nxt")
+    want = BWD[grad][0](dacc, src)
+    assert got.shape == want.shape
+    assert _max_err(got, want.numpy()) <= 1e-6 * max(
+        1.0, float(want.abs().max()))
+
+
 # Each kernel's device name as torch.profiler reports it (the demangled
 # symbol) and its id in the profiler's breakdown.
 KERNEL_NAMES = [
@@ -118,10 +211,19 @@ KERNEL_NAMES = [
      "float)", "K3"),
     ("void qpw::correlate_kernel<float, true>(float const*, float const*, "
      "float const*, float*, int, int, int, float)", "K3"),
-    ("void qpw::cv_bwd_kernel<__nv_bfloat16, false>(__nv_bfloat16 const*, "
-     "__nv_bfloat16 const*, __nv_bfloat16*, int, int, int, int)", "K4a"),
+    ("void qpw::cv_bwd_kernel<float, false>(float const*, float const*, "
+     "float*, int, int, int, int)", "K4a"),
     ("void qpw::cv_bwd_kernel<float, true>(float const*, float const*, "
      "float*, int, int, int, int)", "K4b"),
+    ("void qpw::cv_bwd_mma_kernel<false, 8>(__nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, __nv_bfloat16*, int, int, int, int, int, int)",
+     "K4a"),
+    ("void qpw::cv_bwd_mma_kernel<false, 2>(__nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, __nv_bfloat16*, int, int, int, int, int, int)",
+     "K4a"),
+    ("void qpw::cv_bwd_mma_kernel<true, 4>(__nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, __nv_bfloat16*, int, int, int, int, int, int)",
+     "K4b"),
     ("void qpw::upconv_kernel<16>(float const*, float const*, float const*, "
      "float*, int, int, int)", "K5"),
     ("void qpw::upconv_mma_kernel<32, 4>(__nv_bfloat16 const*, float const*, "
