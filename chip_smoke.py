@@ -7,18 +7,19 @@ frame-interpolation paths on one CUDA card.
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. device: the card's name and power limit; TF32 off.
   2. build: nvcc-builds qpwcnet_torch/csrc/*.cu (sm_90a, one nvcc per
-     source, all at once) and loads the library; K1's, K2's, K4a's, K4b's
-     and K5's bf16 kernels must issue tensor-core instructions (HMMA in
-     cuobjdump's SASS), every instantiation, and K1's, K4a's and K4b's
-     float32 bodies none.
+     source, all at once) and loads the library; K1's, K2's, K3's, K4a's,
+     K4b's and K5's bf16 kernels must issue tensor-core instructions (HMMA
+     in cuobjdump's SASS), every instantiation, and K1's, K3's, K4a's and
+     K4b's float32 bodies none.
   3. kernel equality: each CUDA kernel against its plain PyTorch version
      at the headline shapes (448x1024 input, batch 8, so 2B = 16 through
      the encoder), at batch 1 (the infer app's) and at one shape that is
      no tile multiple, in float32 and bf16 (K1 also at the five levels of
      the training configuration, at C = 20 and on a map smaller than one
-     tile; K2 also at a ragged Co 32
-     shape, and in bf16 at encoder stage 2's Co 64, which float32 must
-     refuse); the cost-volume backward
+     tile; K3 also at the train step's level, at C = 20 and at C = 64,
+     two chunks, each with flows inside the ±4 window and beyond it; K2
+     also at a ragged Co 32 shape, and in bf16 at encoder stage 2's Co
+     64, which float32 must refuse); the cost-volume backward
      kernels K4a and K4b at the five cost-volume levels of the training
      configuration (256x512, batch 16), at batch 1, at odd shapes (C % 8
      != 0 and W no multiple of 16; C = 256 in split channel groups), and
@@ -32,7 +33,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      exact and 'fast', against the plain model (stem_stages=0,
      cv_impl='plain') in bf16 and float32, with each kernel's launch
      count per forward and the device kernels of one bf16 forward, with
-     K1's and K2's device time (torch.profiler); the float32 model on
+     K1's, K2's and K3's device time (torch.profiler); the float32 model on
      the card against the same model on the CPU at a small shape; then
      the infer app (qpwcnet_torch.apps.infer, --fast, 2 requests at
      448x1024) as the first main path.
@@ -40,8 +41,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      configuration): one train step of the exact, 'fast' and plain models
      (seeded flow heads, and a fresh 'diag' model whose flows are zero),
      every parameter's gradient against the plain model's in float32 and
-     bf16, each kernel's launch count per step, the loss falling over 5
-     steps on a fixed batch; then the train app
+     bf16, each kernel's launch count per step, the plain bf16 step
+     repeated with bit-equal gradients (phases 4b and 4c run with
+     cudnn.deterministic), the loss falling over 5 steps on a fixed batch;
+     then the train app
      (qpwcnet_torch.apps.train_flow, synthetic data, 4 steps) as the
      second main path.
   4c. interpolator slice at 256x512 b8 (the JAX bench's pretraining
@@ -59,9 +62,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      its plain version at the headline shapes (K4a and K4b at the training
      levels, K5 at its six shapes, with its achieved GB/s), beside its
      bound and, for K2 and K5, the cuDNN call computing the same product
-     (K1, K2, K4a, K4b and K5 also chained, with their achieved GB/s;
-     K1, K4a and K4b also their device time by torch.profiler, since the
-     host's time per call exceeds the coarse levels' card time); the flow
+     (K1, K2, K3, K4a, K4b and K5 also chained, with their achieved GB/s;
+     K1, K3, K4a and K4b also their device time by torch.profiler, since
+     the host's time per call exceeds the coarse levels' card time); the
+     flow
      forward, the flow train step, the interpolator forward and the
      pretraining step; K5's in-model effect (upconv_stages 0 beside 2:
      the interpolator's forward and pretraining step, the exact flow
@@ -78,6 +82,7 @@ interpolator's two training shapes); the last line is {"ok": true,
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -289,6 +294,21 @@ def build(dtype, dev, hw=(H, W), k=1.5, **kw):
     return model
 
 
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms, restored after: phases 4b and 4c
+    compare gradients, and cuDNN's weight gradients of the flow heads'
+    2-channel output convs otherwise change between runs."""
+    import torch
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
 # ----------------------------------------------------------------- phases
 
 def phase_device():
@@ -322,10 +342,10 @@ def phase_build():
 
 
 def sass_tensor_cores(lib_path, bin_dir) -> None:
-    """Count tensor-core (HMMA) instructions in K1's, K2's, K4a's, K4b's
-    and K5's kernels in the built library's SASS: each bf16 instantiation
-    must issue them, and K1's, K4a's and K4b's float32 bodies (CUDA-core
-    FMAs) none."""
+    """Count tensor-core (HMMA) instructions in K1's, K2's, K3's, K4a's,
+    K4b's and K5's kernels in the built library's SASS: each bf16
+    instantiation must issue them, and K1's, K3's, K4a's and K4b's float32
+    bodies (CUDA-core FMAs) none."""
     import re
 
     cuobjdump = bin_dir / "cuobjdump"
@@ -342,13 +362,18 @@ def sass_tensor_cores(lib_path, bin_dir) -> None:
         elif name and "HMMA" in line:
             counts[name] += 1
     mma, f32, stem, stem32, cv, cv32 = {}, {}, {}, {}, {}, {}
-    bwd, bwd32 = {}, {}
+    bwd, bwd32, wcv, wcv32 = {}, {}, {}, {}
     for name, n in counts.items():
         m = re.search(r"cost_volume_mma_kernelILi(\d+)ELi(\d+)E", name)
         if m:
             cv[f"{m[1]} rows, {9 // int(m[2])} di a warp"] = n
         if re.search(r"correlate_kernelIfLb0E", name):
             cv32["correlate_kernel<float, false>"] = n
+        m = re.search(r"warp_cv_mma_kernelILi(\d+)ELi(\d+)E", name)
+        if m:
+            wcv[f"{m[1]} rows, {9 // int(m[2])} di a warp"] = n
+        if re.search(r"correlate_kernelIfLb1E", name):
+            wcv32["correlate_kernel<float, true>"] = n
         m = re.search(r"cv_bwd_mma_kernelILb([01])ELi(\d+)E", name)
         if m:
             bwd[("K4b" if m[1] == "1" else "K4a") + f", {m[2]} rows"] = n
@@ -368,6 +393,7 @@ def sass_tensor_cores(lib_path, bin_dir) -> None:
         if m:
             stem32[f"Co {m[1]}"] = n
     log(f"  SASS HMMA count: K1 bf16 {cv}, K1 float32 {cv32}")
+    log(f"  SASS HMMA count: K3 bf16 {wcv}, K3 float32 {wcv32}")
     log(f"  SASS HMMA count: K4 bf16 {bwd}, K4 float32 {bwd32}")
     log(f"  SASS HMMA count: K5 bf16 {mma}, K5 float32 {f32}")
     log(f"  SASS HMMA count: K2 bf16 {stem}, K2 float32 {stem32}")
@@ -375,6 +401,10 @@ def sass_tensor_cores(lib_path, bin_dir) -> None:
           f"K1's bf16 body issues no HMMA: {cv}")
     check(len(cv32) == 1 and all(n == 0 for n in cv32.values()),
           f"K1's float32 body is not the CUDA-core one: {cv32}")
+    check(len(wcv) == 3 and all(n > 0 for n in wcv.values()),
+          f"K3's bf16 body issues no HMMA: {wcv}")
+    check(len(wcv32) == 1 and all(n == 0 for n in wcv32.values()),
+          f"K3's float32 body is not the CUDA-core one: {wcv32}")
     check(len(bwd) == 6 and all(n > 0 for n in bwd.values()),
           f"K4a's and K4b's bf16 body issues no HMMA: {bwd}")
     check(sorted(bwd32) == ["K4a f", "K4b f"]
@@ -420,11 +450,16 @@ def phase_kernels(dev):
             compare(f"K1 cost_volume {dn} ({b},{h},{w},{c})",
                     cost_volume_cuda(prv, nxt), cost_volume_plain(prv, nxt),
                     rel, errs, "cost_volume")
-        # flows inside the ±4 window (clipped at 3.9), and beyond it
-        for shape, fscale, lim in (((B, 224, 512, 32), 2.0, 3.9),
-                                   ((B, 224, 512, 32), 6.0, None),
-                                   ((1, 224, 512, 32), 6.0, None),
-                                   ((2, 13, 37, 24), 6.0, None)):
+        # flows inside the ±4 window (clipped at 3.9), and beyond it; the
+        # 'fast' forward's level (b8, b1), the train step's (b16), C % 8 !=
+        # 0 (element-wise gather) and C = 64 (two chunks)
+        inside, beyond = (2.0, 3.9), (6.0, None)
+        for shape, (fscale, lim) in (
+                ((B, 224, 512, 32), inside), ((B, 224, 512, 32), beyond),
+                ((1, 224, 512, 32), beyond), ((2, 13, 37, 24), beyond),
+                *(((s, f) for s in ((TRAIN_B, 128, 256, 32), (2, 13, 37, 20),
+                                    (2, 24, 40, 64))
+                   for f in (inside, beyond)))):
             prv, nxt = rand(shape, dtype), rand(shape, dtype)
             flow = rand(shape[:3] + (2,), torch.float32, fscale)
             if lim is not None:
@@ -659,8 +694,9 @@ def phase_slice(dev):
                     cats = prof["by_category"]
                     log(f"  {mode} {dn}: {prof['kernels']:.0f} device "
                         f"kernels a forward (torch.profiler), K1 "
-                        f"{cats.get('K1', 0.0):.3f} ms and K2 "
-                        f"{cats.get('K2', 0.0):.3f} ms of "
+                        f"{cats.get('K1', 0.0):.3f} ms, K2 "
+                        f"{cats.get('K2', 0.0):.3f} ms and K3 "
+                        f"{cats.get('K3', 0.0):.3f} ms of "
                         f"{prof['busy_ms']:.3f} busy ms")
             # the flow entering the finest UpFlow, where 'fast' clamps
             ms = models["plain", dtype](x, multiscale=True)
@@ -805,6 +841,11 @@ def compare_grads(tag, got, want, ref32=None):
             worst.append((rms(d) / (BF16_GRAD_FACTOR * noise + floor), r,
                           name))
     worst.sort(reverse=True)
+    if ref32 is not None:
+        cancel = [(r, n) for _, r, n in worst if n.endswith(CANCELLING)]
+        log(f"  {tag}: cancelling leaves, rms(err)/rms(plain bf16 - plain "
+            f"f32) (limit {BF16_GRAD_FACTOR}): "
+            + ", ".join(f"{n} {r:.4f}" for r, n in cancel[:2]))
     what = "max|err|/grad_scale" if ref32 is None else \
         "rms(err)/rms(plain bf16 - plain f32)"
     log(f"  {tag}: {len(worst)} leaves, worst {what}: "
@@ -848,6 +889,18 @@ def phase_train(dev):
                     f"{float(fin_in.max()):.3f} px")
                 check(float(fin_in.max()) < 4.0, "flow beyond the fused "
                       "window: 'fast' computes another function than plain")
+                if dtype == bf16:
+                    # R6: the plain bf16 step again, on a fresh model
+                    _, again, _ = grad_step(build_train(dtype, dev, **kw),
+                                            batch)
+                    differ = [n for n in again
+                              if not torch.equal(again[n], grads[mode][n])]
+                    same = len(again) - len(differ)
+                    log(f"  plain bf16 step repeated: {same} of "
+                        f"{len(again)} gradients bit-equal")
+                    check(not differ, f"plain bf16 gradients differ between "
+                          f"two runs: {differ[:4]}")
+                    del again
             del m
             torch.cuda.empty_cache()
         for mode in ("exact", "fast"):
@@ -1305,10 +1358,19 @@ def phase_times(dev, x, batch, ibatch):
         # float32 flow read once
         bnd = bound_cv(*shape, extra_ops=7 * math.prod(shape),
                        extra_bytes=4 * 2 * math.prod(shape[:3]))
-        k, p, _ = ab(f"K3 warp_cost_volume {shape}",
-                     lambda: warp_cost_volume_cuda(prv, nxt, flow),
+        tag = f"K3 warp_cost_volume {shape}"
+        k, p, _ = ab(tag, lambda: warp_cost_volume_cuda(prv, nxt, flow),
                      lambda: warp_cost_volume_plain(prv, nxt, flow), bnd)
         totals.add("warp_cost_volume", k, p, bnd)
+        kc = time_chain_ms(lambda: warp_cost_volume_cuda(prv, nxt, flow))
+        kd = device_ms(lambda: warp_cost_volume_cuda(prv, nxt, flow))
+        nbytes = bnd[0] * 1e-3 * PEAK_BYTES
+        log(f"    {tag}: one call {nbytes / (k * 1e-3) / 1e9:.1f} GB/s, "
+            f"x{k / max(bnd):.2f} the bound; chained x20 {kc:.4f} ms, "
+            f"x{kc / max(bnd):.2f} the bound, "
+            f"{nbytes / (kc * 1e-3) / 1e9:.1f} GB/s; device {kd:.4f} ms, "
+            f"x{kd / max(bnd):.2f} the bound, "
+            f"{nbytes / (kd * 1e-3) / 1e9:.1f} GB/s")
         del prv, nxt, flow
         # K4a and K4b at the five training levels: one call (the kernels
         # line), chained x20 and the device time alone (torch.profiler)
@@ -1523,8 +1585,9 @@ def main() -> int:
     phase_kernels_bwd(dev, errs)
     phase_kernels_upconv(dev, errs)
     infer_counts, x = phase_slice(dev)
-    train_counts, batch = phase_train(dev)
-    interp_paths, ibatch = phase_interp(dev, x)
+    with cudnn_deterministic():
+        train_counts, batch = phase_train(dev)
+        interp_paths, ibatch = phase_interp(dev, x)
     totals = phase_times(dev, x, batch, ibatch)
     log(f"== all phases passed in {time.perf_counter() - t0:.1f} s")
 

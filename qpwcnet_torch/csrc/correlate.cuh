@@ -1,7 +1,7 @@
-// The 81-offset correlation on the CUDA cores: K1's float32 body
-// (cost_volume.cu) and the fused warp+correlate kernel K3 (warp_cv.cu) in
-// both dtypes. K1's bf16 body runs on the tensor cores instead
-// (cost_volume.cu: cost_volume_mma_kernel).
+// The 81-offset correlation on the CUDA cores: the float32 bodies of K1
+// (cost_volume.cu) and of the fused warp+correlate K3 (warp_cv.cu). Both
+// bf16 bodies run on the tensor cores instead (cv_mma.cuh:
+// cost_volume_mma_kernel, warp_cv_mma_kernel).
 //
 //   out[b,y,x,k] = leaky_relu_0.1((1/C) * sum_c prv[b,y,x,c] * src[b,y+di,x+dj,c])
 //   di, dj in [-4, 4], k = (di+4)*9 + (dj+4), src zero outside the image,
@@ -20,11 +20,12 @@
 // What bounds it on the H100: not device memory (a level's maps are read
 // about once, the halo's re-reads hit L2) but the shared-memory operand
 // loads, one per FMA (81 loads for a pixel's 81 FMAs a channel), and the
-// staging: scalar 2- or 4-byte loads, a chunk of 8 channels between two
+// staging: scalar 4-byte loads, a chunk of 8 channels between two
 // barriers, no copy in flight during the FMAs, and each thread storing its
-// own 81 outputs 81 elements from its neighbour's. K1 in float32 stays
-// here because its products must be float32 (TF32 is not within 1e-5 of
-// the plain version); K3 waits for a redesign like K1's bf16 body.
+// own 81 outputs 81 elements from its neighbour's. float32 stays here
+// because its products must be float32 (TF32 is not within 1e-5 of the
+// plain version). The template keeps the element type T: rnd<T> is the
+// identity for float.
 #pragma once
 
 #include "common.cuh"

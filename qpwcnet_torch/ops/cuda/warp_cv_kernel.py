@@ -1,5 +1,6 @@
-"""K3: fused warp + correlate as a CUDA kernel (``csrc/warp_cv.cu``,
-``csrc/correlate.cuh``).
+"""K3: fused warp + correlate as a CUDA kernel (``csrc/warp_cv.cu``;
+bf16 on the tensor cores with ``csrc/cv_mma.cuh``, float32 on the CUDA
+cores with ``csrc/correlate.cuh``).
 
 Replaces: ``qpwcnet_tpu/ops/pallas/warp_cv_kernel.py:_wcv_kernel`` (via
 ``warp_cost_volume_pallas``).
@@ -9,13 +10,15 @@ without writing the warped map: the identity of the JAX kernel
 (``warp_cv_kernel.py:27-31``), with the flow clamp to ``±warp_window``
 kept.
 
-What bounds it on the H100: the unfused pair writes and re-reads the
-warped (B, H, W, C) map and pays the plain cost volume's 81 passes. The
-kernel gathers each window position's four corners from nxt into shared
-memory (true per-pixel addressing; the TPU's (2w+2)² masked taps are not
-needed on a GPU) and correlates as K1 does. Its cost is the gather,
-repeated for the 8-row/8-column halo of each 8x32 tile (2.5x), plus
-K1's shared-memory-bound correlation loop.
+What bounds it on the H100: bytes, as the cost volume's (K1); the
+unfused pair writes and re-reads the warped (B, H, W, C) map. The bf16
+body is K1's banded tensor-core body with the haloed window built by a
+gather: per window pixel the corner origin and weights from the flow at
+that pixel, then per 8-channel segment the four corners' 16-byte loads
+and the bilinear interpolation at the plain version's bf16 rounding
+points, stored into the window's shared-memory rows (true per-pixel
+addressing; the TPU's (2w+2)² masked taps are not needed on a GPU). The
+float32 body is the CUDA-core ``correlate_kernel<float, true>``.
 """
 
 from __future__ import annotations

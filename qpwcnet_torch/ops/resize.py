@@ -32,11 +32,46 @@ def upsample2x_bilinear(x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
     return nhwc(upsample2x_bilinear_nchw(nchw(x), scale))
 
 
+def _up2x(x: torch.Tensor) -> torch.Tensor:
+    return F.interpolate(x, scale_factor=2.0, mode="bilinear",
+                         align_corners=False)
+
+
+def _up2x_adjoint(g: torch.Tensor, d: int) -> torch.Tensor:
+    """The transpose of 2x bilinear upsampling (half-pixel centers) along
+    dim d: output row 2k holds 0.75 of input row k and 0.25 of row k - 1,
+    row 2k + 1 0.75 of row k and 0.25 of row k + 1, a missing neighbour's
+    share going to the edge row."""
+    n = g.shape[d] // 2
+    even, odd = g.unflatten(d, (n, 2)).unbind(d + 1)
+    even_next = torch.cat([even.narrow(d, 1, n - 1), odd.narrow(d, n - 1, 1)],
+                          d)
+    odd_prev = torch.cat([even.narrow(d, 0, 1), odd.narrow(d, 0, n - 1)], d)
+    return 0.75 * (even + odd) + 0.25 * (even_next + odd_prev)
+
+
+class _Upsample2x(torch.autograd.Function):
+    """2x bilinear upsampling whose backward is the same from run to run.
+    The forward is ``F.interpolate``; its CUDA backward scatters with
+    atomics, in an order (and so, in bf16, with roundings) that changes
+    between runs. This backward is the transpose written as slices, in
+    float32 (or wider), rounded once to the gradient's dtype."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _up2x(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        gf = g.to(torch.promote_types(g.dtype, torch.float32))
+        return _up2x_adjoint(_up2x_adjoint(gf, 2), 3).to(g.dtype)
+
+
 def upsample2x_bilinear_nchw(x: torch.Tensor,
                              scale: float = 1.0) -> torch.Tensor:
-    """:func:`upsample2x_bilinear` on an NCHW tensor (the model's layout)."""
-    y = F.interpolate(x, scale_factor=2.0, mode="bilinear",
-                      align_corners=False)
+    """:func:`upsample2x_bilinear` on an NCHW tensor (the model's layout),
+    with :class:`_Upsample2x`'s reproducible backward."""
+    y = _Upsample2x.apply(x)
     if scale != 1.0:
         y = y * scale
     return y

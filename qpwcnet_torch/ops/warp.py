@@ -103,11 +103,38 @@ def _warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     return top + (bot - top) * ay
 
 
+def _scatter_rows(n: int, idx: list, terms: list) -> torch.Tensor:
+    """An (n, C) map in the terms' dtype whose row r sums every
+    ``terms[k][i]`` with ``idx[k][i] == r``, the same from run to run on
+    either device:
+      * CPU tensors: ``index_add_`` of each list entry in turn, in the
+        terms' dtype (bf16 adds for bf16), each summing in index order.
+      * CUDA tensors: one ``index_put_(accumulate=True)`` of all the terms
+        into a float32 map, rounded once to the terms' dtype. PyTorch runs
+        it on the card as a stable sort by destination and a segmented
+        sum, so each row's terms are added in one fixed order (list, then
+        index). ``index_add_`` there is a scatter of atomics whose order,
+        and so whose bf16 rounding, changes between runs.
+    """
+    dtype, device = terms[0].dtype, terms[0].device
+    if device.type == "cuda":
+        acc = torch.zeros((n, terms[0].shape[1]), dtype=torch.float32,
+                          device=device)
+        acc.index_put_((torch.cat(idx),), torch.cat(terms).float(),
+                       accumulate=True)
+        return acc.to(dtype)
+    acc = torch.zeros((n, terms[0].shape[1]), dtype=dtype, device=device)
+    for i, t in zip(idx, terms):
+        acc.index_add_(0, i, t)
+    return acc
+
+
 def _warp_img_grad(img: torch.Tensor, flow: torch.Tensor,
                    g: torch.Tensor) -> torch.Tensor:
-    """d_img of ``_warp_bwd_impl``: the four corner weights times g,
-    scatter-added over flattened HW in g's dtype, then the gradient of
-    the 1-pixel edge padding folded back onto the edge pixels."""
+    """d_img of ``_warp_bwd_impl``: the four corner weights times g (each
+    term rounded to g's dtype), scatter-added over flattened HW
+    (:func:`_scatter_rows`), then the gradient of the 1-pixel edge padding
+    folded back onto the edge pixels."""
     b, hi, wi, c = img.shape
     _, h, w, _ = flow.shape
     hp, wp = max(hi, 2), max(wi, 2)
@@ -117,14 +144,14 @@ def _warp_img_grad(img: torch.Tensor, flow: torch.Tensor,
     gf = g.reshape(b, h * w, c)
     ax = ax.reshape(b, h * w, 1).to(g.dtype)
     ay = ay.reshape(b, h * w, 1).to(g.dtype)
-    acc = torch.zeros((b * hp * wp, c), dtype=g.dtype, device=g.device)
+    idx, terms = [], []
     for dy in (0, 1):
         wy = ay if dy else 1.0 - ay
         for dx in (0, 1):
             wgt = wy * (ax if dx else 1.0 - ax)
-            acc.index_add_(0, (base + dy * wp + dx).reshape(-1),
-                           (wgt * gf).reshape(-1, c))
-    d_img = acc.reshape(b, hp, wp, c)
+            idx.append((base + dy * wp + dx).reshape(-1))
+            terms.append((wgt * gf).reshape(-1, c))
+    d_img = _scatter_rows(b * hp * wp, idx, terms).reshape(b, hp, wp, c)
     if hp != hi:
         d_img = torch.cat([d_img[:, :hi - 1],
                            d_img[:, hi - 1:].sum(1, keepdim=True)], 1)

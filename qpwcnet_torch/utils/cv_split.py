@@ -1,5 +1,5 @@
-"""Where K1's bf16 time goes: ``csrc/cost_volume.cu`` built seven ways
-and timed.
+"""Where K1's bf16 time goes: ``csrc/cost_volume.cu`` (with the shared
+``csrc/cv_mma.cuh``) built seven ways and timed.
 
     python -m qpwcnet_torch.utils.cv_split        # on a CUDA card
 
@@ -41,10 +41,26 @@ LEVELS = ((8, 14, 32, 256), (8, 28, 64, 256), (8, 56, 128, 128),
           (8, 112, 256, 64), (8, 224, 512, 32))
 
 
-def variants(src: str) -> dict[str, str]:
+def flatten(name: str) -> str:
+    """csrc/``name`` with the shared header ``cv_mma.cuh`` written into it
+    (its ``#pragma once`` dropped), so that a variant can edit the parts
+    that the header holds."""
+    header = (_build.CSRC_DIR / "cv_mma.cuh").read_text().replace(
+        "#pragma once\n", "")
+    src = (_build.CSRC_DIR / name).read_text()
+    include = '#include "cv_mma.cuh"\n'
+    if src.count(include) != 1:
+        raise RuntimeError(f"{name} no longer includes cv_mma.cuh once")
+    return src.replace(include, header)
+
+
+def variants(src: str, name: str = "cost_volume.cu") -> dict[str, str]:
+    """The variants of a flattened source (:func:`flatten`): whole, without
+    the products, without the stores, without both, and with each tile
+    shape forced."""
     for pat in (K_LOOP, STORES, TILE8, TILE4):
         if src.count(pat) != 1:
-            raise RuntimeError(f"cost_volume.cu no longer holds {pat!r} once")
+            raise RuntimeError(f"{name} no longer holds {pat!r} once")
     no_mma = K_LOOP.replace("ks < CM_CC / 16", "ks < 0")
     no_st = STORES.replace("i < TY * CM_UNITS", "i < 0")
     return {"full": src,
@@ -132,8 +148,7 @@ def _check(name, shape, got, want) -> None:
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("cv_split needs a CUDA card")
-    src = (_build.CSRC_DIR / "cost_volume.cu").read_text()
-    libs = build(variants(src))
+    libs = build(variants(flatten("cost_volume.cu")))
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
     stream = _build.stream_ptr(dev)

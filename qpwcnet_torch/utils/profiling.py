@@ -28,7 +28,8 @@ import torch
 CATEGORIES = (
     # K1: the float32 body (CUDA cores) and the bf16 body (tensor cores)
     ("K1", r"correlate_kernel<[^>]*, false>|cost_volume_mma_kernel"),
-    ("K3", r"correlate_kernel<[^>]*, true>"),
+    # K3: the float32 body (CUDA cores) and the bf16 body (tensor cores)
+    ("K3", r"correlate_kernel<[^>]*, true>|warp_cv_mma_kernel"),
     # K4a, K4b: the float32 body (CUDA cores) and the bf16 body (tensor
     # cores)
     ("K4a", r"cv_bwd_kernel<[^>]*, false>|cv_bwd_mma_kernel<false"),

@@ -42,6 +42,7 @@ from qpwcnet_torch.ops.cuda.upconv_kernel import (
     upconv_stage_plain,
     upconv_stage_trainable,
 )
+from qpwcnet_torch.ops.warp import backward_warp
 from qpwcnet_torch.ops.cuda.warp_cv_kernel import (
     warp_cost_volume_cuda,
     warp_cost_volume_plain,
@@ -175,6 +176,103 @@ def test_warp_cost_volume_kernel(dev, dtype):
     _assert_close(warp_cost_volume_cuda(prv, nxt, flow),
                   warp_cost_volume_plain(prv, nxt, flow))
     assert warp_cost_volume_cuda.launches == 1
+
+
+def _check_warp_cv(dev, shape, seed, scale=6.0, views=None):
+    """One K3 launch against its plain version; flows of std ``scale`` px
+    (6: about half beyond the ±4 window, clamped)."""
+    rng = np.random.RandomState(seed)
+    if views is None:
+        prv = _rand(rng, shape, dev, torch.bfloat16)
+        nxt = _rand(rng, shape, dev, torch.bfloat16)
+    else:
+        prv, nxt = views
+    flow = _rand(rng, shape[:3] + (2,), dev, scale=scale)
+    kernels.reset_launch_counts()
+    _assert_close(warp_cost_volume_cuda(prv, nxt, flow),
+                  warp_cost_volume_plain(prv, nxt, flow))
+    assert warp_cost_volume_cuda.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [20, 32, 64, 256])
+@pytest.mark.parametrize("scale", [2.0, 6.0])
+def test_warp_cost_volume_kernel_bf16_widths(dev, c, scale):
+    """The tensor-core body at C % 8 != 0 (element-wise gather and
+    staging), the models' C = 32, and several chunks (64, 256), with flows
+    inside the ±4 window and beyond it, on a map that is no tile
+    multiple."""
+    _check_warp_cv(dev, (2, 13, 37, c), seed=c, scale=scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (1, 30, 70, 32),     # batch 1
+    (1, 5, 7, 32),       # smaller than one tile
+    (3, 5, 7, 20),       # smaller than one tile, element-wise gather
+    (1, 2, 2, 8),        # the smallest map the warp takes
+    (16, 64, 128, 32),   # more tiles than resident blocks
+    (40, 13, 37, 40),    # many tiles, two chunks, the second partial
+])
+def test_warp_cost_volume_kernel_bf16_grid(dev, shape):
+    _check_warp_cv(dev, shape, seed=sum(shape))
+
+
+@pytest.mark.cuda
+def test_warp_cost_volume_kernel_bf16_unaligned_views(dev):
+    """Maps that start off a 16-byte boundary take the element-wise
+    gather and staging; output rows that do are stored around their
+    ends."""
+    rng = np.random.RandomState(21)
+    shape = (2, 13, 37, 24)
+    n = 2 * 13 * 37 * 24
+    flat = _rand(rng, (n + 4,), dev, torch.bfloat16)
+    _check_warp_cv(dev, shape, seed=22,
+                   views=(flat[4:].view(shape), flat[:-4].view(shape)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_warp_cost_volume_launches_one_kernel(dev, dtype):
+    """A call launches one device kernel: the tensor-core body in bf16,
+    the CUDA-core correlate_kernel in float32."""
+    rng = np.random.RandomState(23)
+    prv = _rand(rng, (2, 56, 128, 32), dev, dtype)
+    nxt = _rand(rng, (2, 56, 128, 32), dev, dtype)
+    flow = _rand(rng, (2, 56, 128, 2), dev, scale=3.0)
+    warp_cost_volume_cuda(prv, nxt, flow)  # builds the library
+    torch.cuda.synchronize()
+    names = _device_kernels(lambda: warp_cost_volume_cuda(prv, nxt, flow))
+    body = ("warp_cv_mma_kernel" if dtype == torch.bfloat16
+            else "correlate_kernel<float, true>")
+    assert len(names) == 1 and body in names[0], names
+    assert warp_cost_volume_cuda.launches == 1
+
+
+@pytest.mark.cuda
+def test_backward_warp_image_gradient_is_reproducible(dev):
+    """The warp's d_img on the card (a sorted scatter, not atomics): two
+    backward passes of bf16 backward_warp at the 'fast' train step's
+    finest level give bit-equal gradients, within the bf16 tolerance of
+    the CPU's (4 half-ulps of the magnitude: the card sums each
+    destination's terms in float32, the CPU in bf16)."""
+    rng = np.random.RandomState(24)
+    shape = (16, 128, 256, 32)
+    img = _rand(rng, shape, dev, torch.bfloat16)
+    flow = _rand(rng, shape[:3] + (2,), dev, scale=3.0)
+    g = _rand(rng, shape, dev, torch.bfloat16)
+
+    def grads(device):
+        leaves = [t.detach().to(device).clone().requires_grad_()
+                  for t in (img, flow)]
+        backward_warp(*leaves).backward(g.to(device))
+        return [t.grad for t in leaves]
+
+    (d_img, d_flow), (d_img2, d_flow2) = grads(dev), grads(dev)
+    assert torch.equal(d_img, d_img2) and torch.equal(d_flow, d_flow2)
+    want = grads("cpu")[0]
+    err = float((d_img.cpu().float() - want.float()).abs().max())
+    assert err <= 4 * 2.0 ** -8 * max(1.0, float(want.float().abs().max()))
 
 
 @pytest.mark.cuda

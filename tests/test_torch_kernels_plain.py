@@ -9,9 +9,11 @@ plain version is held against the JAX function its kernel replaces:
     (and vs ``cost_volume_xla`` in tests/test_torch_ops.py);
   * K2 ``downconv_stage_plain`` vs ``downconv_stage_pallas(interpret=True)``
     and ``DownConv.apply``;
-  * K3 ``warp_cost_volume_plain`` vs ``cost_volume_xla(prv,
-    backward_warp(nxt, clip(flow, ±ww)))``, the identity of
-    ``warp_cv_kernel.py:27-31``;
+  * K3 ``warp_cost_volume_plain`` vs ``warp_cost_volume_pallas(
+    interpret=True)`` and vs ``cost_volume_xla(prv, backward_warp(nxt,
+    clip(flow, ±ww)))``, the identity of ``warp_cv_kernel.py:27-31``, and
+    vs the warped window and banded products that its bf16 CUDA body
+    computes (``csrc/warp_cv.cu``);
   * K4a ``cost_volume_bwd_prv_plain`` and K4b ``cost_volume_bwd_nxt_plain``
     vs ``_cv_bwd_prv_impl`` / ``_cv_bwd_nxt_impl(interpret=True)``, and
     both vs the banded products that their bf16 CUDA body computes
@@ -36,6 +38,7 @@ from qpwcnet_tpu.ops.pallas.cost_volume_kernel import (
     cost_volume_pallas,
 )
 from qpwcnet_tpu.ops.pallas.stem_kernel import downconv_stage_pallas
+from qpwcnet_tpu.ops.pallas.warp_cv_kernel import warp_cost_volume_pallas
 from qpwcnet_tpu.ops.warp import backward_warp
 from qpwcnet_torch.models import build_flow_net
 from qpwcnet_torch.ops import cuda as kernels
@@ -211,6 +214,15 @@ KERNEL_NAMES = [
      "float)", "K3"),
     ("void qpw::correlate_kernel<float, true>(float const*, float const*, "
      "float const*, float*, int, int, int, float)", "K3"),
+    ("void qpw::warp_cv_mma_kernel<8, 1>(__nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, float const*, __nv_bfloat16*, int, int, int, "
+     "float, int)", "K3"),
+    ("void qpw::warp_cv_mma_kernel<4, 3>(__nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, float const*, __nv_bfloat16*, int, int, int, "
+     "float, int)", "K3"),
+    ("void qpw::warp_cv_mma_kernel<2, 9>(__nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, float const*, __nv_bfloat16*, int, int, int, "
+     "float, int)", "K3"),
     ("void qpw::cv_bwd_kernel<float, false>(float const*, float const*, "
      "float*, int, int, int, int)", "K4a"),
     ("void qpw::cv_bwd_kernel<float, true>(float const*, float const*, "
@@ -289,6 +301,105 @@ def test_warp_cost_volume_plain_matches_jax_composition(dtype):
                            backward_warp(jnp.asarray(nxt, jdt),
                                          jnp.asarray(flow)))
     assert _max_err(got, free) > 0.05
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_warp_cost_volume_plain_matches_pallas_kernel(dtype):
+    """K3's plain version against the TPU kernel itself, flows up to ±8 px
+    so that the ±4 clamp matters. float32: 1e-6 of the magnitude. bf16:
+    two ulps: the TPU kernel rounds the weight products and each
+    correlation product to bf16, the plain version rounds at the lerp's
+    operations and sums exact products."""
+    rng = np.random.RandomState(40)
+    shape = (1, 16, 24, 4)
+    prv, nxt = (rng.standard_normal(shape).astype(np.float32)
+                for _ in range(2))
+    flow = rng.uniform(-8, 8, shape[:3] + (2,)).astype(np.float32)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    got = warp_cost_volume_plain(_t(prv, tdt), _t(nxt, tdt), _t(flow),
+                                 warp_window=4)
+    want = warp_cost_volume_pallas(
+        jnp.asarray(prv).astype(jdt), jnp.asarray(nxt).astype(jdt),
+        jnp.asarray(flow), warp_window=4, interpret=True)
+    assert got.shape == shape[:3] + (81,) and got.dtype == tdt
+    want = np.asarray(want.astype(jnp.float32))
+    rel = 1e-6 if dtype == "float32" else 2.0 ** -6
+    assert _max_err(got, want) <= rel * max(1.0, float(np.max(np.abs(want))))
+
+
+def _warped_window(nxt, flow, y0, x0, ww, zero_outside=True):
+    """The (8+8) x 24 window of the 8 x 16 tile at (y0, x0) as the bf16 CUDA
+    body of K3 stages it: each window pixel (gy, gx) warped by flow[gy, gx]
+    clamped to ±ww, a bilinear sample of nxt with the corner origin
+    clamped to [0, size-2] and the weights to [0, 1]; window pixels
+    outside the image zero (``zero_outside``) or, as a wrong alternative,
+    border-clamped. float32."""
+    b, h, w, _ = nxt.shape
+    gy = torch.arange(y0 - 4, y0 + 12)[:, None].expand(16, 24)
+    gx = torch.arange(x0 - 4, x0 + 20)[None, :].expand(16, 24)
+    inside = (gy >= 0) & (gy < h) & (gx >= 0) & (gx < w)
+    f = flow[:, gy.clamp(0, h - 1), gx.clamp(0, w - 1)].clamp(-ww, ww)
+    qx, qy = gx + f[..., 0], gy + f[..., 1]
+    cx = torch.floor(qx).clamp(0, w - 2)
+    cy = torch.floor(qy).clamp(0, h - 2)
+    ax = (qx - cx).clamp(0, 1)[..., None]
+    ay = (qy - cy).clamp(0, 1)[..., None]
+    bi = torch.arange(b)[:, None, None]
+    ix, iy = cx.long(), cy.long()
+
+    def g(dy, dx):
+        return nxt[bi, iy + dy, ix + dx]
+
+    top = g(0, 0) + (g(0, 1) - g(0, 0)) * ax
+    bot = g(1, 0) + (g(1, 1) - g(1, 0)) * ax
+    win = top + (bot - top) * ay
+    return win * inside[..., None] if zero_outside else win
+
+
+def _banded_wcv(prv, nxt, flow, ww, zero_outside=True):
+    """K3 as the bf16 CUDA body computes it: per 8 x 16 tile the warped
+    window (:func:`_warped_window`), then K1's band: for output row y,
+    displacement row i = di + 4 and 8 pixels x0 + 8j .. + 7, the product
+    D = A B of the 16 window columns A[q][c] = win[y - y0 + i, 8j + q, c]
+    and the pixels B[c][p] = prv[y, x0 + 8j + p, c], of which the band
+    k = 9i + (q - p), 0 <= q - p <= 8, is kept; scaled by 1/C and
+    leaky-ReLU'd. float32 in, float32 out."""
+    b, h, w, c = prv.shape
+    hp, wp = -(-h // 8) * 8, -(-w // 16) * 16
+    pprv = F.pad(prv, (0, 0, 0, wp - w, 0, hp - h))
+    out = torch.zeros(b, hp, wp, 81)
+    p = torch.arange(8)[:, None]
+    q = p + torch.arange(9)[None, :]  # (pixel, dj) -> window column
+    for y0 in range(0, h, 8):
+        for x0 in range(0, w, 16):
+            win = _warped_window(nxt, flow, y0, x0, ww, zero_outside)
+            for r in range(8):
+                for i in range(9):
+                    for j in range(2):
+                        a = win[:, r + i, 8 * j:8 * j + 16]       # (b, 16, c)
+                        x = x0 + 8 * j
+                        bb = pprv[:, y0 + r, x:x + 8]            # (b, 8, c)
+                        d = torch.matmul(a, bb.transpose(1, 2))  # (b, 16, 8)
+                        out[:, y0 + r, x:x + 8, 9 * i:9 * i + 9] = d[:, q, p]
+    return F.leaky_relu(out[:, :h, :w] * (1.0 / c), 0.1)
+
+
+def test_warp_cost_volume_window_decomposition():
+    """The window algebra of the bf16 CUDA body against the plain version,
+    float32, with flows up to ±7 px and a border on every side: each
+    window pixel warped by the flow at that pixel, zeros outside the
+    image. Border-clamping the window instead would be wrong."""
+    rng = np.random.RandomState(41)
+    shape = (2, 9, 21, 12)
+    prv, nxt = (_t(rng.standard_normal(shape)) for _ in range(2))
+    flow = _t(rng.uniform(-7, 7, shape[:3] + (2,)))
+    want = warp_cost_volume_plain(prv, nxt, flow, warp_window=4)
+    tol = 1e-6 * max(1.0, float(want.abs().max()))
+    got = _banded_wcv(prv, nxt, flow, 4.0)
+    assert got.shape == want.shape
+    assert _max_err(got, want.numpy()) <= tol
+    clamped = _banded_wcv(prv, nxt, flow, 4.0, zero_outside=False)
+    assert _max_err(clamped, want.numpy()) > 1e3 * tol
 
 
 def test_cpu_tensors_take_the_plain_versions():

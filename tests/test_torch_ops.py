@@ -86,6 +86,28 @@ def test_upsample2x_bilinear_matches_jax(scale):
            jresize.upsample2x_bilinear(_j(x), scale), 1e-6)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hw", [(5, 7), (1, 4)])
+def test_upsample2x_reproducible_backward_matches_jax(hw, dtype):
+    """The upsampling's backward that CUDA tensors take (the transpose as
+    slices, float32 sums rounded once) against the VJP of the JAX
+    function: float32 to rounding; bf16 within one rounding of the
+    magnitude (JAX sums the terms in bf16)."""
+    rng = np.random.RandomState(sum(hw))
+    x = rng.standard_normal((2, *hw, 3)).astype(np.float32)
+    g = rng.standard_normal((2, 2 * hw[0], 2 * hw[1], 3)).astype(np.float32)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    xt = _t(x, tdt).requires_grad_()
+    y = tresize.nhwc(tresize._Upsample2x.apply(tresize.nchw(xt)))
+    y.backward(_t(g, tdt))
+    want_y, vjp = jax.vjp(jresize.upsample2x_bilinear, _j(x, jdt))
+    (want,) = vjp(_j(g, jdt))
+    assert xt.grad.dtype == tdt
+    rel = 1e-6 if dtype == "float32" else 2 * BF16_ROUNDOFF
+    _close(y, want_y, rel)
+    _close(xt.grad, want, rel)
+
+
 @pytest.mark.parametrize("out_hw", [(12, 20), (3, 5)])
 def test_resize_bilinear_matches_jax(out_hw):
     """Up (half-pixel bilinear) and down (antialiased) resizes."""
