@@ -58,6 +58,19 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      points (build_interpolator + make_interp_train_step, 2 steps and an
      eval forward), the pretrain_interp app (4 steps) and the
      interp_infer app (2 synthetic triplets).
+  4d. checkpoints and the apps that need them (also under
+     cudnn.deterministic): the 256x512 b16 bf16 flow model after two
+     steps saved, restored on the card and onto a CPU model, all bit-equal
+     (with the checkpoint's bytes and the save and restore ms); train_flow
+     (bf16, b16) run 4 steps, run 2 steps, and the second resumed to 4:
+     its final checkpoint bit-equal to the first's; the same for
+     pretrain_interp (bf16, b8); train_flow --transfer-from-interp from
+     that pretraining checkpoint; eval_sintel on a 436x1024 Sintel-layout
+     fixture it writes itself ('pad' and 'resize' after recalibration,
+     and without it on the card and on the CPU, within a relative 1e-4);
+     infer --fast --load-ckpt at 448x1024 and interp_infer --load-ckpt:
+     six more main paths, each with the launches its forwards and steps
+     imply.
   5. times: CUDA events after warm-up, median of N: each kernel against
      its plain version at the headline shapes (K4a and K4b at the training
      levels, K5 at its six shapes, with its achieved GB/s), beside its
@@ -935,14 +948,16 @@ def phase_train(dev):
     steps, log_every, recal = 4, 2, 16
     log(f"  train app: --data synthetic --steps {steps} --curriculum '' at "
         f"{TRAIN_H}x{TRAIN_W} b{TRAIN_B} (the main path)")
-    kernels.reset_launch_counts()
-    metrics = train_flow.main([
-        "--data", "synthetic", "--steps", str(steps), "--curriculum", "",
-        "--batch-size", str(TRAIN_B), "--height", str(TRAIN_H),
-        "--width", str(TRAIN_W), "--log-every", str(log_every),
-        "--recalibrate-final", str(recal), "--device", str(dev)])
-    torch.cuda.synchronize()
-    main_counts = kernels.launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels.reset_launch_counts()
+        metrics = train_flow.main([
+            "--data", "synthetic", "--steps", str(steps), "--curriculum", "",
+            "--batch-size", str(TRAIN_B), "--height", str(TRAIN_H),
+            "--width", str(TRAIN_W), "--log-every", str(log_every),
+            "--recalibrate-final", str(recal), "--device", str(dev),
+            "--run-root", tmp])
+        torch.cuda.synchronize()
+        main_counts = kernels.launch_counts()
     log(f"  train app: last step {metrics}, launches {main_counts}")
     check(all(np.isfinite(v) for v in metrics.values()), "train app loss")
     # K1 in every forward (steps, held-out evals, recalibration passes),
@@ -1141,14 +1156,15 @@ def phase_interp(dev, x):
     steps, log_every, recal = 4, 2, 4
     log(f"  pretrain app: --steps {steps} at {TRAIN_H}x{TRAIN_W} "
         f"b{INTERP_B} (a main path)")
-    kernels.reset_launch_counts()
-    metrics = pretrain_interp.main([
-        "--steps", str(steps), "--batch-size", str(INTERP_B),
-        "--height", str(TRAIN_H), "--width", str(TRAIN_W),
-        "--log-every", str(log_every), "--recalibrate-final", str(recal),
-        "--device", str(dev)])
-    torch.cuda.synchronize()
-    app_counts = kernels.launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels.reset_launch_counts()
+        metrics = pretrain_interp.main([
+            "--steps", str(steps), "--batch-size", str(INTERP_B),
+            "--height", str(TRAIN_H), "--width", str(TRAIN_W),
+            "--log-every", str(log_every), "--recalibrate-final", str(recal),
+            "--device", str(dev), "--run-root", tmp])
+        torch.cuda.synchronize()
+        app_counts = kernels.launch_counts()
     log(f"  pretrain app: last logged {metrics}, launches {app_counts}")
     check(all(np.isfinite(v) for v in metrics.values())
           and "mse_eval" in metrics, "pretrain app metrics")
@@ -1179,6 +1195,312 @@ def phase_interp(dev, x):
           f"{infer_counts}")
     return {"interp": interp_counts, "pretrain_app": app_counts,
             "interp_infer_app": infer_counts}, batch
+
+
+def state_diff(a, b) -> list:
+    """The leaves in which two checkpoints (torch.load of state.pt) or
+    two (model, chain) pairs' states differ: the step, every state_dict
+    entry and every Adam step/exp_avg/exp_avg_sq, compared on the host
+    bit for bit."""
+    import torch
+
+    diff = [] if a["step"] == b["step"] else ["step"]
+    if a["model"].keys() != b["model"].keys():
+        return diff + ["model keys"]
+    diff += [k for k in a["model"]
+             if not torch.equal(a["model"][k].cpu(), b["model"][k].cpu())]
+    sa, sb = a["optimizer"]["state"], b["optimizer"]["state"]
+    if sa.keys() != sb.keys() or not sa:
+        return diff + ["Adam state keys"]
+    diff += [f"adam.{i}.{n}" for i in sa
+             for n in ("step", "exp_avg", "exp_avg_sq")
+             if not torch.equal(sa[i][n].cpu(), sb[i][n].cpu())]
+    return diff
+
+
+def live_state(model, chain) -> dict:
+    """A (model, GradientChain) pair in the layout of a checkpoint."""
+    return {"step": chain.global_step, "model": model.state_dict(),
+            "optimizer": chain.state_dict()}
+
+
+def load_ckpt(ckpt_dir, step) -> dict:
+    import torch
+
+    return torch.load(Path(ckpt_dir) / str(step) / "state.pt",
+                      map_location="cpu", weights_only=True)
+
+
+def write_sintel_fixture(root, dev, seed, h=436, w=1024, disp=8.0) -> None:
+    """A Sintel-layout tree: one sequence of 3 frames at h x w of a
+    warped synthetic texture (frame_k = warp(frame_k+1, flow_k)) and its
+    two .flo files, written by the port's own PNG and .flo writers."""
+    import numpy as np
+    import torch
+
+    from qpwcnet_torch.data.flo_format import write_flo
+    from qpwcnet_torch.data.synthetic import random_flow_field, random_texture
+    from qpwcnet_torch.ops.warp import backward_warp
+    from qpwcnet_torch.vis import write_png
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pad = int(2 * disp + 1)
+    hp, wp = h + 2 * pad, w + 2 * pad
+    frames = [random_texture(gen, 1, hp, wp)]
+    flows = []
+    for _ in range(2):
+        flows.insert(0, random_flow_field(gen, 1, hp, wp, max_disp=disp))
+        frames.insert(0, backward_warp(frames[0], flows[0]))
+    img_dir = Path(root) / "training" / "final" / "seq"
+    flo_dir = Path(root) / "training" / "flow" / "seq"
+    img_dir.mkdir(parents=True)
+    flo_dir.mkdir(parents=True)
+    crop = (0, slice(pad, pad + h), slice(pad, pad + w))
+    for i, f in enumerate(frames):
+        rgb = torch.clamp(torch.round(f[crop] * 255.0), 0, 255)
+        write_png(img_dir / f"frame_{i + 1:04d}.png",
+                  rgb.to(torch.uint8).cpu().numpy())
+    for i, fl in enumerate(flows):
+        write_flo(flo_dir / f"frame_{i + 1:04d}.flo",
+                  fl[crop].cpu().numpy().astype(np.float32))
+
+
+def phase_ckpt(dev, batch):
+    """Phase 4d: checkpoints and the apps that need them."""
+    import numpy as np
+    import torch
+
+    from qpwcnet_torch.apps import (
+        eval_sintel, infer, interp_infer, pretrain_interp, train_flow)
+    from qpwcnet_torch.data.flo_format import read_flo
+    from qpwcnet_torch.models import build_flow_net
+    from qpwcnet_torch.ops import cuda as kernels
+    from qpwcnet_torch.train import (
+        CheckpointManager, make_flow_train_step, plain_optimizer)
+    from qpwcnet_torch.utils.config import parse_config
+
+    log("== phase 4d: checkpoints and the apps that need them")
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+
+        # 1. The round trip on the card, and onto a CPU model.
+        model = build_train(bf16, dev, cv_impl="auto", stem_stages=2)
+        opt = plain_optimizer(model, 1e-4)
+        step = make_flow_train_step()
+        for _ in range(2):
+            step(model, opt, batch)
+        mgr = CheckpointManager(tmp / "roundtrip")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check(mgr.save(2, model, opt), "round trip: save refused")
+        save_ms = 1e3 * (time.perf_counter() - t0)
+        nbytes = (tmp / "roundtrip" / "2" / "state.pt").stat().st_size
+        fresh = build_train(bf16, dev, k=0.0, cv_impl="auto", stem_stages=2)
+        chain = plain_optimizer(fresh, 1e-4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = mgr.restore(fresh, chain)
+        torch.cuda.synchronize()
+        restore_ms = 1e3 * (time.perf_counter() - t0)
+        cpu = build_flow_net(SEED + 1, "cpu", dtype=bf16, cv_impl="auto",
+                             stem_stages=2)
+        cpu_chain = plain_optimizer(cpu, 1e-4)
+        cpu_step = mgr.restore(cpu, cpu_chain)
+        want = live_state(model, opt)
+        d_card = state_diff(want, live_state(fresh, chain))
+        d_cpu = state_diff(want, live_state(cpu, cpu_chain))
+        model.eval()
+        fresh.eval()
+        with torch.inference_mode():
+            same_fwd = torch.equal(model(batch["ims"]), fresh(batch["ims"]))
+        log(f"  round trip, {TRAIN_H}x{TRAIN_W} b{TRAIN_B} bf16 after 2 "
+            f"steps: {nbytes} bytes, save {save_ms:.3f} ms, restore "
+            f"{restore_ms:.3f} ms (card); step {got} / {cpu_step}; "
+            f"differing leaves card {d_card[:4]}, CPU {d_cpu[:4]}; "
+            f"forward bit-equal {same_fwd}")
+        check(got == cpu_step == 2 and not d_card and not d_cpu and same_fwd,
+              "checkpoint round trip")
+        del model, opt, fresh, chain, cpu, cpu_chain
+        torch.cuda.empty_cache()
+
+        # 2. train_flow: run A (4 steps), run B (2 steps), run C (B
+        # resumed to 4 steps); C's final checkpoint must equal A's.
+        targs = ["--data", "synthetic", "--curriculum", "", "--batch-size",
+                 str(TRAIN_B), "--height", str(TRAIN_H), "--width",
+                 str(TRAIN_W), "--compute-dtype", "bfloat16",
+                 "--recalibrate-final", "0", "--log-every", "2",
+                 "--ckpt-every", "2", "--device", str(dev), "--run-root",
+                 str(tmp / "flow")]
+        flow_ckpt = tmp / "flow" / "000" / "ckpt"
+        kernels.reset_launch_counts()
+        train_flow.main(targs + ["--steps", "4"])
+        train_flow.main(targs + ["--steps", "2"])
+        train_flow.main(targs + ["--steps", "4", "--load-ckpt",
+                                 str(tmp / "flow" / "001" / "ckpt")])
+        torch.cuda.synchronize()
+        paths["train_resume"] = kernels.launch_counts()
+        diff = state_diff(load_ckpt(flow_ckpt, 4),
+                          load_ckpt(tmp / "flow" / "002" / "ckpt", 4))
+        steps = [CheckpointManager(tmp / "flow" / f"00{r}" / "ckpt")
+                 .all_steps() for r in range(3)]
+        log(f"  train_flow A 4 / B 2 / C B->4 steps: checkpoints {steps}, "
+            f"C against A: {len(diff)} differing leaves {diff[:6]}, "
+            f"launches {paths['train_resume']}")
+        check(steps == [[2, 4], [2], [4]], f"train_flow steps {steps}")
+        check(not diff, "train_flow resumed run differs from the "
+              f"uninterrupted one: {diff}")
+        n_steps, n_fwd = 4 + 2 + 2, 4 + 2 + 2 + 2 + 1 + 1
+        check(paths["train_resume"] == counts_of(
+            K1=5 * n_fwd, K4a=5 * n_steps, K4b=5 * n_steps),
+            f"train_flow resume launches {paths['train_resume']}")
+
+        # 3. The same for pretrain_interp, augmentation on.
+        pargs = ["--batch-size", str(INTERP_B), "--height", str(TRAIN_H),
+                 "--width", str(TRAIN_W), "--compute-dtype", "bfloat16",
+                 "--recalibrate-final", "0", "--log-every", "2",
+                 "--ckpt-every", "2", "--device", str(dev), "--run-root",
+                 str(tmp / "pre")]
+        pre_ckpt = tmp / "pre" / "000" / "ckpt"
+        kernels.reset_launch_counts()
+        pretrain_interp.main(pargs + ["--steps", "4"])
+        pretrain_interp.main(pargs + ["--steps", "2"])
+        pretrain_interp.main(pargs + ["--steps", "4", "--load-ckpt",
+                                      str(tmp / "pre" / "001" / "ckpt")])
+        torch.cuda.synchronize()
+        paths["pretrain_resume"] = kernels.launch_counts()
+        diff = state_diff(load_ckpt(pre_ckpt, 4),
+                          load_ckpt(tmp / "pre" / "002" / "ckpt", 4))
+        log(f"  pretrain_interp A 4 / B 2 / C B->4 steps: C against A: "
+            f"{len(diff)} differing leaves {diff[:6]}, launches "
+            f"{paths['pretrain_resume']}")
+        check(not diff, "pretrain_interp resumed run differs from the "
+              f"uninterrupted one: {diff}")
+        check(paths["pretrain_resume"] == counts_of(
+            K1=5 * n_fwd, K4a=5 * n_steps, K4b=5 * n_steps),
+            f"pretrain resume launches {paths['pretrain_resume']}")
+
+        # 4. --transfer-from-interp: --steps 0 keeps the state before the
+        # first step; --steps 2 is the path (its curriculum is skipped).
+        xargs = ["--data", "synthetic", "--curriculum", "1,1",
+                 "--batch-size", str(TRAIN_B), "--height", str(TRAIN_H),
+                 "--width", str(TRAIN_W), "--compute-dtype", "bfloat16",
+                 "--recalibrate-final", "0", "--log-every", "2",
+                 "--ckpt-every", "2", "--device", str(dev), "--load-ckpt",
+                 str(pre_ckpt), "--transfer-from-interp", "true",
+                 "--run-root", str(tmp / "xfer")]
+        train_flow.main(xargs + ["--steps", "0"])
+        src = load_ckpt(pre_ckpt, 4)["model"]
+        dst = load_ckpt(tmp / "xfer" / "000" / "ckpt", 0)["model"]
+        shared = [k for k in dst if k.split(".")[0] in
+                  ("encoder", "decoder", "flower")
+                  and not k.endswith(("running_mean", "running_var",
+                                      "num_batches_tracked"))]
+        differ = [k for k in shared if not torch.equal(dst[k], src[k])]
+        kernels.reset_launch_counts()
+        metrics = train_flow.main(xargs + ["--steps", "2"])
+        torch.cuda.synchronize()
+        paths["transfer_app"] = kernels.launch_counts()
+        log(f"  train_flow --transfer-from-interp: {len(shared)} "
+            f"parameters from the interpolator's checkpoint, "
+            f"{len(differ)} differ; 2 steps {metrics}, launches "
+            f"{paths['transfer_app']}")
+        check(len(shared) > 100 and not differ, f"transfer: {differ[:4]}")
+        check(all(np.isfinite(v) for v in metrics.values()),
+              "transfer run loss")
+        check(paths["transfer_app"] == counts_of(K1=5 * 3, K4a=10, K4b=10),
+              f"transfer launches {paths['transfer_app']}")
+
+        # 5. eval_sintel on a Sintel-layout fixture at 436x1024.
+        write_sintel_fixture(tmp / "sintel", dev, SEED + 20)
+        eargs = ["--data-path", str(tmp / "sintel"), "--load-ckpt",
+                 str(flow_ckpt)]
+
+        def evaluate(*extra):
+            return eval_sintel.run(parse_config(eval_sintel.Settings,
+                                                eargs + list(extra)))
+
+        kernels.reset_launch_counts()
+        pad = evaluate("--protocol", "pad", "--recalibrate", "2",
+                       "--device", str(dev))
+        resize = evaluate("--protocol", "resize", "--recalibrate", "2",
+                          "--device", str(dev))
+        # card against CPU: a checkpoint of the float32 flow net with
+        # seeded heads (flows of ~2 px in eval mode; run A's 4 steps
+        # leave them near 0, and the EPE then near predict-zero's)
+        seeded = build(torch.float32, dev)
+        CheckpointManager(tmp / "seeded").save(
+            0, seeded, plain_optimizer(seeded, 0.0))
+        del seeded
+        eargs[-1] = str(tmp / "seeded")
+        card = evaluate("--recalibrate", "0", "--device", str(dev))
+        torch.cuda.synchronize()
+        paths["eval_sintel_app"] = kernels.launch_counts()
+        on_cpu = evaluate("--recalibrate", "0", "--device", "cpu")
+        rel = abs(card["value"] - on_cpu["value"]) / abs(on_cpu["value"])
+        zero = float(np.mean([
+            np.linalg.norm(read_flo(f), axis=-1).mean() for f in
+            sorted((tmp / "sintel" / "training" / "flow").rglob("*.flo"))]))
+        log(f"  eval_sintel: run A's checkpoint, pad {pad}, resize "
+            f"{resize}; seeded heads, recalibrate 0: card "
+            f"{card['value']!r} CPU {on_cpu['value']!r} (relative "
+            f"{rel:.3e}, limit 1e-4; predict-zero {zero!r}); launches "
+            f"{paths['eval_sintel_app']}")
+        for r in (pad, resize, card, on_cpu):
+            check(r["n"] == 2 and np.isfinite(r["value"]),
+                  f"eval_sintel {r}")
+        check(rel <= 1e-4, f"eval_sintel card against CPU: {rel}")
+        # not vacuous: the flows move the EPE off predict-zero's by 100
+        # times the tolerance
+        check(abs(card["value"] - zero) > 1e-2 * zero,
+              "eval_sintel card against CPU: vacuous, the EPE is "
+              "predict-zero's")
+        # float32 K1, 448x1024 b1: 2 recalibration and 2 eval forwards in
+        # each of the first two runs, 2 eval forwards in the third
+        check(paths["eval_sintel_app"] == counts_of(K1=5 * 10),
+              f"eval_sintel launches {paths['eval_sintel_app']}")
+
+        # 6. infer --fast --load-ckpt and interp_infer --load-ckpt.
+        cfg = parse_config(infer.Settings, [
+            "--fast", "true", "--n", "2", "--height", str(H), "--width",
+            str(W), "--out-dir", str(tmp / "infer"), "--device", str(dev),
+            "--load-ckpt", str(flow_ckpt)])
+        model = infer.build_model(cfg)
+        saved = load_ckpt(flow_ckpt, 4)["model"]
+        loaded = [k for k, v in model.state_dict().items()
+                  if not torch.equal(v.cpu(), saved[k])]
+        kernels.reset_launch_counts()
+        errs = infer.run(cfg, model)
+        torch.cuda.synchronize()
+        paths["infer_ckpt_app"] = kernels.launch_counts()
+        del model
+        with tempfile.TemporaryDirectory() as out:
+            kernels.reset_launch_counts()
+            results = interp_infer.main([
+                "--data", "synthetic", "--n", "2", "--height", str(TRAIN_H),
+                "--width", str(TRAIN_W), "--out-dir", out, "--device",
+                str(dev), "--load-ckpt", str(pre_ckpt)])
+            torch.cuda.synchronize()
+            paths["interp_infer_ckpt_app"] = kernels.launch_counts()
+        log(f"  infer --fast --load-ckpt: {len(loaded)} leaves differ from "
+            f"the checkpoint, warp-validation L1 {errs}, launches "
+            f"{paths['infer_ckpt_app']}; interp_infer --load-ckpt: "
+            f"{results}, launches {paths['interp_infer_ckpt_app']}")
+        check(not loaded, f"infer --load-ckpt: {loaded[:4]}")
+        check(len(errs) == 2 and all(np.isfinite(errs)), "infer errors")
+        check(paths["infer_ckpt_app"] == counts_of(K1=8, K2=4, K3=2),
+              f"infer --load-ckpt launches {paths['infer_ckpt_app']}")
+        check(len(results) == 2
+              and all(np.isfinite(r["psnr"]) for r in results),
+              "interp_infer --load-ckpt PSNR")
+        check(paths["interp_infer_ckpt_app"] == counts_of(K1=10),
+              f"interp_infer --load-ckpt launches "
+              f"{paths['interp_infer_ckpt_app']}")
+    torch.cuda.empty_cache()
+    log(f"  phase 4d wall time {time.perf_counter() - t_phase:.1f} s")
+    return paths
 
 
 def bound(nbytes: float, nops: float) -> tuple:
@@ -1588,11 +1910,12 @@ def main() -> int:
     with cudnn_deterministic():
         train_counts, batch = phase_train(dev)
         interp_paths, ibatch = phase_interp(dev, x)
+        ckpt_paths = phase_ckpt(dev, batch)
     totals = phase_times(dev, x, batch, ibatch)
     log(f"== all phases passed in {time.perf_counter() - t0:.1f} s")
 
     paths = {"infer_app": infer_counts, "train_app": train_counts,
-             **interp_paths}
+             **interp_paths, **ckpt_paths}
     entries = []
     for name, meta in KERNELS.items():
         key = f"{name}_cuda"

@@ -2,6 +2,9 @@
 Headless: writes PNGs of each frame pair, the warped next frame and the
 flow, and prints each pair's warp-validation L1.
 
+``--load-ckpt <ckpt dir>`` loads the parameters and BatchNorm statistics
+of that directory's latest checkpoint into the JAX app's model.
+
 Run: python -m qpwcnet_torch.apps.infer --data synthetic --n 2 [--fast true]
 """
 
@@ -22,6 +25,7 @@ from qpwcnet_torch.utils.config import with_args
 class Settings:
     data: str = "synthetic"    # 'synthetic' | 'sintel'
     data_path: str = ""        # sintel shard glob
+    load_ckpt: str = ""        # run ckpt dir
     height: int = 256
     width: int = 512
     n: int = 4                 # number of examples
@@ -40,14 +44,19 @@ def _save(path, arr01: torch.Tensor) -> None:
 
 
 def build_model(cfg: Settings) -> torch.nn.Module:
+    """The JAX app's model (build_flow_net from seed 0, as its
+    jax.random.key(0): 'diag' heads, no residual), with the parameters
+    and statistics of cfg.load_ckpt's latest checkpoint when set."""
     from qpwcnet_torch.models import build_flow_net
+    from qpwcnet_torch.train import CheckpointManager
 
     fast_kw = {}
     if cfg.fast:
         fast_kw = dict(dtype=torch.bfloat16, cv_impl="fast", stem_stages=2)
-    # Weights from seed 0, as the JAX app's jax.random.key(0): the port
-    # has no checkpoint restore yet.
-    return build_flow_net(0, torch.device(cfg.device), **fast_kw)
+    model = build_flow_net(0, torch.device(cfg.device), **fast_kw)
+    if cfg.load_ckpt:
+        CheckpointManager(cfg.load_ckpt).restore_params(model)
+    return model
 
 
 def run(cfg: Settings, model: torch.nn.Module) -> list[float]:

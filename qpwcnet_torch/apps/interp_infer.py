@@ -8,9 +8,11 @@ each triplet's PSNR and half-warp L1.
 Run: python -m qpwcnet_torch.apps.interp_infer --data synthetic --n 2
 
 Modes: 'synthetic' (the JAX app's RandomState(0) uniform triplets, so the
-inputs are the same) and 'dummy' (black frames). Not ported yet, and
-refused with NotImplementedError: ``--data vimeo | ytvos`` (ROADMAP
-queue-1 item 8) and ``--load-ckpt`` (item 9).
+inputs are the same) and 'dummy' (black frames). ``--load-ckpt <ckpt
+dir>`` loads the parameters and BatchNorm statistics of that directory's
+latest checkpoint (a ``pretrain_interp`` run's) into the JAX app's model.
+Not ported yet, and refused with NotImplementedError: ``--data vimeo |
+ytvos`` (ROADMAP queue 1, data).
 """
 
 from __future__ import annotations
@@ -43,17 +45,20 @@ def _refuse_unported(cfg: Settings) -> None:
     if cfg.data not in ("dummy", "synthetic"):
         raise NotImplementedError(
             f"--data {cfg.data}: the triplet datasets wait for ROADMAP "
-            "queue-1 item 8 (data)")
-    if cfg.load_ckpt:
-        raise NotImplementedError(
-            "--load-ckpt: checkpoints wait for ROADMAP queue-1 item 9")
+            "queue 1, data")
 
 
 def build_model(cfg: Settings) -> torch.nn.Module:
+    """The JAX app's model (build_interpolator from seed 0, as its
+    jax.random.key(0): 'diag' heads, no residual), with the parameters
+    and statistics of cfg.load_ckpt's latest checkpoint when set."""
     from qpwcnet_torch.models import build_interpolator
+    from qpwcnet_torch.train import CheckpointManager
 
-    # Weights from seed 0, as the JAX app's jax.random.key(0).
-    return build_interpolator(0, torch.device(cfg.device))
+    model = build_interpolator(0, torch.device(cfg.device))
+    if cfg.load_ckpt:
+        CheckpointManager(cfg.load_ckpt).restore_params(model)
+    return model
 
 
 def _triplets(cfg: Settings):

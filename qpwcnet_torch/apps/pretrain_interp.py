@@ -12,13 +12,20 @@ l2 term, NaN-grad scrub, AGC, Adam; train/train_state.py). Every
 the running BatchNorm statistics and images/s; at the end the BatchNorm
 statistics are recalibrated.
 
+Each run makes the next run directory under ``--run-root``
+(``NNN/{log,ckpt}``, ``config.json``), writes every logged scalar to
+``log/metrics.jsonl`` and saves a checkpoint every ``ckpt_every`` steps,
+on an interrupt and after the recalibration. Batches and augmentation
+draws are indexed by the global step, so a run resumed with
+``--load-ckpt <ckpt dir>`` replays the uninterrupted one.
+
 Run: python -m qpwcnet_torch.apps.pretrain_interp --steps 20
 
 Not ported yet, and refused with NotImplementedError rather than
-skipped: the datasets (``--data vimeo | ytvos | dummy``) wait for ROADMAP
-queue-1 item 8; checkpoints (``--load-ckpt``, saving every
-``--ckpt-every`` steps) for item 9; QAT (``--qat``) for item 10; and
-``--debug-nan`` (JAX's NaN checker) has no counterpart yet.
+skipped: the datasets (``--data vimeo | ytvos | dummy``) wait for
+ROADMAP queue 1, data; QAT (``--qat``) for ROADMAP queue 1,
+quantization; and ``--debug-nan`` (JAX's NaN checker) has no counterpart
+yet.
 """
 
 from __future__ import annotations
@@ -37,8 +44,7 @@ from qpwcnet_torch.utils.config import with_args
 class Settings:
     """Pretraining settings: the fields of the JAX app's Settings that the
     port reads or refuses (not ``steps_per_call``, which fuses steps into
-    one dispatch, nor ``run_root``, where checkpoints go), plus the
-    device."""
+    one dispatch), plus the device."""
 
     data: str = "synthetic"    # only 'synthetic' is ported
     max_disp: float = 24.0     # synthetic flow magnitude bound (px)
@@ -51,7 +57,8 @@ class Settings:
     augment: bool = True
     log_every: int = 100
     ckpt_every: int = 2000
-    load_ckpt: str = ""
+    run_root: str = ""         # default: <tempdir>/qpwcnet_torch/pretrain
+    load_ckpt: str = ""        # ckpt dir to resume from
     compute_dtype: str = "float32"  # or 'bfloat16'
     seed: int = 0
     debug_nan: bool = False
@@ -68,23 +75,15 @@ def _refuse_unported(cfg: Settings) -> None:
     if cfg.data != "synthetic":
         raise NotImplementedError(
             f"--data {cfg.data}: the triplet datasets wait for ROADMAP "
-            "queue-1 item 8 (data)")
-    if cfg.load_ckpt:
-        raise NotImplementedError(
-            "--load-ckpt: checkpoints wait for ROADMAP queue-1 item 9")
+            "queue 1, data")
     if cfg.qat:
         raise NotImplementedError(
-            "--qat: quantization-aware training waits for ROADMAP queue-1 "
-            "item 10")
+            "--qat: quantization-aware training waits for ROADMAP queue 1, "
+            "quantization")
     if cfg.debug_nan:
         raise NotImplementedError(
             "--debug-nan: the JAX NaN checker has no counterpart in the "
             "port yet")
-    if cfg.ckpt_every <= cfg.steps:
-        raise NotImplementedError(
-            f"--steps {cfg.steps} reaches --ckpt-every {cfg.ckpt_every}: "
-            "checkpoint saving waits for ROADMAP queue-1 item 9; run fewer "
-            "steps than --ckpt-every")
 
 
 def build_model(cfg: Settings) -> torch.nn.Module:
@@ -118,14 +117,32 @@ def run(cfg: Settings):
     floats: the mean of each step metric since the previous log and
     'mse_eval')."""
     from qpwcnet_torch.train import (
+        CheckpointManager,
+        MetricWriter,
         create_interp_train_state,
         make_interp_train_step,
         recalibrate_batch_stats,
     )
+    from qpwcnet_torch.utils.runs import (
+        default_root,
+        setup_run_dir,
+        snapshot_config,
+    )
 
     _refuse_unported(cfg)
+    paths = setup_run_dir(cfg.run_root or default_root("pretrain"))
+    snapshot_config(paths["run"], cfg)
+    print(f"run dir: {paths['run']}", file=sys.stderr)
+
     model = build_model(cfg)
     optimizer = create_interp_train_state(model, cfg.learning_rate)
+    ckpt = CheckpointManager(paths["ckpt"])
+    if cfg.load_ckpt:
+        src = CheckpointManager(cfg.load_ckpt)
+        src.restore(model, optimizer)
+        src.close()
+    else:
+        ckpt.restore(model, optimizer)  # auto-resume
     step = make_interp_train_step()
     # Held-out eval triplet, never trained on: eval-mode final-scale MSE
     # with the running BatchNorm statistics, as deployment runs it.
@@ -139,21 +156,31 @@ def run(cfg: Settings):
         return float(torch.mean(torch.square(pred - held["mid"])))
 
     sums, since, logged = None, 0, {}
+    step0 = optimizer.global_step
+    writer = MetricWriter(paths["log"])
     t0 = time.time()
-    for i in range(cfg.steps):
-        batch = _batch(cfg, stream_seed(cfg.seed + 2, i),
-                       stream_seed(cfg.seed + 1, i), cfg.augment)
-        m = step(model, optimizer, batch)
-        sums = m if sums is None else {k: sums[k] + m[k] for k in m}
-        since += 1
-        if (i + 1) % cfg.log_every == 0:
-            logged = {k: float(v) / since for k, v in sums.items()}
-            logged["mse_eval"] = eval_mse()
-            rate = cfg.batch_size * (i + 1) / (time.time() - t0)
-            print(f"step {i + 1}: loss={logged['loss']:.5f} "
-                  f"mse_eval={logged['mse_eval']:.5f} ({rate:.1f} img/s)",
-                  file=sys.stderr, flush=True)
-            sums, since = None, 0
+    try:
+        for i in range(step0, cfg.steps):
+            batch = _batch(cfg, stream_seed(cfg.seed + 2, i),
+                           stream_seed(cfg.seed + 1, i), cfg.augment)
+            m = step(model, optimizer, batch)
+            sums = m if sums is None else {k: sums[k] + m[k] for k in m}
+            since += 1
+            if (i + 1) % cfg.log_every == 0:
+                logged = {k: float(v) / since for k, v in sums.items()}
+                logged["mse_eval"] = eval_mse()
+                rate = cfg.batch_size * (i + 1 - step0) / (time.time() - t0)
+                writer.scalars(i + 1, {**logged, "images_per_sec": rate})
+                print(f"step {i + 1}: loss={logged['loss']:.5f} "
+                      f"mse_eval={logged['mse_eval']:.5f} "
+                      f"({rate:.1f} img/s)", file=sys.stderr, flush=True)
+                sums, since = None, 0
+            if (i + 1) % cfg.ckpt_every == 0:
+                ckpt.save(i + 1, model, optimizer)
+    except KeyboardInterrupt:
+        print("interrupted; saving", file=sys.stderr)
+    finally:
+        writer.close()
     if cfg.recalibrate_final:
         def calib_ims():
             for j in range(cfg.recalibrate_final):
@@ -162,10 +189,10 @@ def run(cfg: Settings):
                              0, augment=False)["ims"]
 
         recalibrate_batch_stats(model, calib_ims(), cfg.recalibrate_final)
-        print(f"recalibrated BN stats over {cfg.recalibrate_final} batches",
-              file=sys.stderr)
-    print("final state not saved: checkpoints wait for ROADMAP queue-1 "
-          "item 9", file=sys.stderr)
+        print(f"recalibrated BN stats over {cfg.recalibrate_final} batches "
+              "before the final save", file=sys.stderr)
+    ckpt.save(optimizer.global_step, model, optimizer)
+    ckpt.wait()
     return model, logged
 
 

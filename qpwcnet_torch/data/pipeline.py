@@ -3,7 +3,7 @@
 ``preprocess_triplet_batch``).
 
 The flow augmentation (flips, scale-and-crop, colour) waits for ROADMAP
-queue-1 item 8; the triplet augmentation is ``data/augment.py``.
+queue 1, data; the triplet augmentation is ``data/augment.py``.
 """
 
 from __future__ import annotations

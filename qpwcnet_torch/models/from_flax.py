@@ -17,6 +17,12 @@ PWCInterpolator.
 
 A leaf with no counterpart, a model tensor left unset, or a shape that
 does not match raises ValueError.
+
+``load_flax_opt_state(optimizer, opt_state)`` carries the Adam state of
+either optax chain of qpwcnet_tpu/train/train_state.py (NaN scrub ->
+Adam, or NaN scrub -> AGC -> Adam) into a ``GradientChain``: ``mu`` and
+``nu`` by the parameters' names and layouts, ``count`` as each
+parameter's Adam ``step``; ``to_flax_opt_state`` is its inverse.
 """
 
 from __future__ import annotations
@@ -117,6 +123,20 @@ def _unconvert(path: tuple[str, ...], value: np.ndarray) -> np.ndarray:
     return value.transpose(2, 3, 1, 0)
 
 
+def _to_tree(model: nn.Module, tensor_of) -> dict:
+    """A Flax-shaped nested dict of float32 numpy arrays, one leaf per
+    parameter, ``tensor_of(key, param)`` in the Flax layout."""
+    tree: dict = {}
+    for key, p in model.named_parameters():
+        path = _flax_path(model, key)
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = np.ascontiguousarray(_unconvert(
+            path, tensor_of(key, p).detach().float().cpu().numpy()))
+    return tree
+
+
 def to_flax_tree(model: nn.Module, what: str = "params") -> dict:
     """The model's parameters (``what='params'``) or their ``.grad``
     (``what='grads'``) as a Flax-shaped nested dict of float32 numpy
@@ -124,15 +144,98 @@ def to_flax_tree(model: nn.Module, what: str = "params") -> dict:
     :func:`load_flax_variables` for the 'params' collection."""
     if what not in ("params", "grads"):
         raise ValueError(f"what must be 'params' or 'grads', got {what!r}")
-    tree: dict = {}
-    for key, p in model.named_parameters():
+
+    def tensor_of(key, p):
         t = p if what == "params" else p.grad
         if t is None:
             raise ValueError(f"{key} has no gradient")
-        path = _flax_path(model, key)
-        node = tree
-        for part in path[:-1]:
-            node = node.setdefault(part, {})
-        node[path[-1]] = np.ascontiguousarray(
-            _unconvert(path, t.detach().float().cpu().numpy()))
-    return tree
+        return t
+
+    return _to_tree(model, tensor_of)
+
+
+def _is_adam(node) -> bool:
+    """optax's ScaleByAdamState (a namedtuple of count, mu, nu)."""
+    return {"count", "mu", "nu"} <= set(getattr(node, "_fields", ()))
+
+
+def _find_adam(opt_state):
+    if _is_adam(opt_state):
+        return opt_state
+    if isinstance(opt_state, tuple) and not hasattr(opt_state, "_fields"):
+        for node in opt_state:
+            found = _find_adam(node)
+            if found is not None:
+                return found
+    return None
+
+
+def load_flax_opt_state(optimizer, opt_state):
+    """Set a GradientChain's Adam state, in place, from an optax chain
+    state (``jax.device_get`` of ``TrainState.opt_state``, either
+    chain): ``mu`` -> ``exp_avg`` and ``nu`` -> ``exp_avg_sq`` with the
+    parameters' name and layout mapping, ``count`` -> every parameter's
+    ``step``. Returns the chain. Its ``global_step`` (JAX's
+    ``TrainState.step``, which counts the curriculum's steps too) is the
+    caller's."""
+    adam = _find_adam(opt_state)
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in the optax state")
+    params = dict(optimizer.model.named_parameters())
+    moments: dict = {}
+    for name, tree in (("exp_avg", adam.mu), ("exp_avg_sq", adam.nu)):
+        for path, value in _flatten(tree):
+            key = torch_key(path)
+            if key not in params:
+                raise ValueError(f"no parameter for Adam {name} "
+                                 f"{'/'.join(path)} (key {key})")
+            arr = _convert(path, np.asarray(value, np.float32))
+            if tuple(arr.shape) != tuple(params[key].shape):
+                raise ValueError(f"{key}: Adam {name} shape "
+                                 f"{tuple(arr.shape)}, parameter "
+                                 f"{tuple(params[key].shape)}")
+            # a copy: Adam updates its moments in place
+            moments.setdefault(key, {})[name] = torch.tensor(
+                arr.copy(), device=params[key].device)
+    for key, p in params.items():
+        if len(moments.get(key, ())) != 2:
+            raise ValueError(f"{key}: no Adam mu/nu in the optax state")
+        optimizer.adam.state[p] = {
+            "step": torch.tensor(float(np.asarray(adam.count)),
+                                 dtype=torch.float32),
+            **moments[key]}
+    return optimizer
+
+
+def to_flax_opt_state(optimizer, template):
+    """The inverse of :func:`load_flax_opt_state`: ``template`` (an
+    optax chain state of either chain, e.g. ``tx.init(params)``) with its
+    Adam ``count``, ``mu`` and ``nu`` from the GradientChain. A parameter
+    without Adam state (never stepped) gets zero moments; the steps of
+    those with state must agree."""
+    adam = _find_adam(template)
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in the template")
+    state = optimizer.adam.state
+    counts = {float(s["step"]) for s in state.values()}
+    if len(counts) > 1:
+        raise ValueError(f"the parameters' Adam steps differ: {counts}")
+
+    def moment(name):
+        return lambda key, p: (state[p][name] if p in state
+                               else torch.zeros_like(p))
+
+    new = adam._replace(
+        count=np.asarray(counts.pop() if counts else 0,
+                         np.asarray(adam.count).dtype),
+        mu=_to_tree(optimizer.model, moment("exp_avg")),
+        nu=_to_tree(optimizer.model, moment("exp_avg_sq")))
+
+    def rebuild(node):
+        if _is_adam(node):
+            return new
+        if isinstance(node, tuple) and not hasattr(node, "_fields"):
+            return tuple(rebuild(n) for n in node)
+        return node
+
+    return rebuild(template)

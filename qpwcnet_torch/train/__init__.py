@@ -1,5 +1,9 @@
+"""The training harness (port of qpwcnet_tpu/train/): losses, AGC and
+the NaN scrub, both optimizer chains, both train steps, BatchNorm
+recalibration, checkpoints and the weight handover, and metrics."""
+
 from qpwcnet_torch.train.agc import adaptive_clip_grads, zero_nan_grads
-from qpwcnet_torch.train.checkpoint import transfer_params
+from qpwcnet_torch.train.checkpoint import CheckpointManager, transfer_params
 from qpwcnet_torch.train.losses import (
     auto_resize_mse_loss,
     epe_error,
@@ -8,6 +12,7 @@ from qpwcnet_torch.train.losses import (
     multiscale_flow_loss,
     multiscale_interp_loss,
 )
+from qpwcnet_torch.train.metrics import MetricWriter
 from qpwcnet_torch.train.train_state import (
     GradientChain,
     create_interp_train_state,
@@ -19,6 +24,8 @@ from qpwcnet_torch.train.train_state import (
 )
 
 __all__ = [
+    "CheckpointManager",
+    "MetricWriter",
     "adaptive_clip_grads",
     "zero_nan_grads",
     "auto_resize_mse_loss",

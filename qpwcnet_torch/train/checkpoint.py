@@ -1,15 +1,122 @@
-"""The pretrain -> supervised weight handover (port of
-``transfer_params`` of qpwcnet_tpu/train/checkpoint.py).
+"""Checkpoints and the pretrain -> supervised weight handover (port of
+qpwcnet_tpu/train/checkpoint.py).
 
-Saving and restoring checkpoints wait for ROADMAP queue-1 item 9.
+:class:`CheckpointManager` keeps ``dir/<step>/state.pt``: the step, the
+model's ``state_dict()`` (float32 parameters and the BatchNorm running
+statistics) and the optimizer chain's Adam state; at most
+``max_to_keep`` of them, the oldest deleted. JAX keeps the same four
+parts in an Orbax checkpoint. :func:`transfer_params` copies the
+subtrees PWCFlowNet and PWCInterpolator share. ``quant_stats`` waits for
+ROADMAP queue 1, quantization.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import os
+import shutil
+import tempfile
+from pathlib import Path
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
+
+STATE_FILE = "state.pt"
+
+
+class CheckpointManager:
+    """Save and restore (model, GradientChain) pairs under ``directory``.
+
+    Orbax's rules, which the JAX package's runs rely on: a save at a
+    step at or below the latest is a no-op (it returns False and the
+    first checkpoint stays), and a restore from a directory with no
+    checkpoint returns None and touches nothing.
+    """
+
+    def __init__(self, directory, max_to_keep: int = 8):
+        self.directory = Path(directory).absolute()
+        self.directory.mkdir(parents=True, exist_ok=True)
+        self.max_to_keep = max_to_keep
+
+    def all_steps(self) -> list[int]:
+        return sorted(int(p.name) for p in self.directory.iterdir()
+                      if p.name.isdigit()
+                      and (p / STATE_FILE).is_file())
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, model: nn.Module, optimizer) -> bool:
+        """Write checkpoint ``step``: ``optimizer.global_step`` (which
+        may differ from the label ``step``), the model's state_dict and
+        the chain's Adam state. The files go to a temporary directory
+        first and move into place with one rename, so a run killed
+        mid-save leaves the previous checkpoints readable. Returns False,
+        writing nothing, when ``step`` is not above the latest step."""
+        latest = self.latest_step()
+        if latest is not None and latest >= step:
+            return False
+        final = self.directory / str(int(step))
+        tmp = Path(tempfile.mkdtemp(prefix=f".{int(step)}-",
+                                    dir=self.directory))
+        try:
+            torch.save({"step": int(optimizer.global_step),
+                        "model": model.state_dict(),
+                        "optimizer": optimizer.state_dict()},
+                       tmp / STATE_FILE)
+            os.replace(tmp, final)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        for old in self.all_steps()[:-self.max_to_keep]:
+            shutil.rmtree(self.directory / str(old))
+        return True
+
+    def _load(self, step: Optional[int], device) -> Optional[dict]:
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            return None
+        return torch.load(self.directory / str(int(step)) / STATE_FILE,
+                          map_location=device, weights_only=True)
+
+    def restore(self, model: nn.Module, optimizer,
+                step: Optional[int] = None) -> Optional[int]:
+        """Load checkpoint ``step`` (default: the latest) into ``model``
+        and ``optimizer`` in place, on the model's device; returns its
+        stored step, which also becomes ``optimizer.global_step``, or
+        None when there is no checkpoint."""
+        state = self._load(step, _device_of(model))
+        if state is None:
+            return None
+        model.load_state_dict(state["model"])
+        optimizer.load_state_dict(state["optimizer"])
+        optimizer.global_step = int(state["step"])
+        return optimizer.global_step
+
+    def restore_params(self, model: nn.Module,
+                       step: Optional[int] = None) -> Optional[int]:
+        """Load only the parameters and BatchNorm statistics, ignoring
+        the checkpoint's optimizer state (for a caller without a chain,
+        or with another chain than the saving run's); returns the stored
+        step, or None when there is no checkpoint."""
+        state = self._load(step, _device_of(model))
+        if state is None:
+            return None
+        model.load_state_dict(state["model"])
+        return int(state["step"])
+
+    def wait(self) -> None:
+        """Saves are synchronous: nothing to wait for (Orbax's may run
+        in the background)."""
+
+    def close(self) -> None:
+        """Nothing is held open between calls."""
+
+
+def _device_of(model: nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
 
 # The subtrees PWCFlowNet and PWCInterpolator share.
 TRANSFER_SUBTREES = ("encoder", "decoder", "flower")

@@ -25,7 +25,12 @@ from qpwcnet_torch.train.losses import (
 class GradientChain:
     """zero_nan_grads -> adaptive_clip_grads (when ``clip_factor`` is
     set) -> ``torch.optim.Adam(lr)`` (optax.adam's defaults: betas .9 /
-    .999, eps 1e-8) over all of ``model``'s parameters."""
+    .999, eps 1e-8) over all of ``model``'s parameters.
+
+    ``global_step`` counts the steps taken, JAX's ``TrainState.step``:
+    :meth:`step` adds one, and a caller that replaces the chain mid-run
+    (the train app's curriculum) carries it over, as JAX's
+    ``state.replace(tx=..., opt_state=...)`` keeps the step."""
 
     def __init__(self, model: nn.Module, learning_rate: float,
                  clip_factor: Optional[float] = None, eps: float = 1e-3,
@@ -35,6 +40,7 @@ class GradientChain:
         self.eps = eps
         self.exclude = tuple(exclude)
         self.adam = torch.optim.Adam(model.parameters(), lr=learning_rate)
+        self.global_step = 0
 
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=True)
@@ -45,6 +51,22 @@ class GradientChain:
             adaptive_clip_grads(self.model, self.clip_factor, self.eps,
                                 self.exclude)
         self.adam.step()
+        self.global_step += 1
+
+    def state_dict(self) -> dict:
+        """The Adam state (each parameter's ``step``, ``exp_avg``,
+        ``exp_avg_sq``, by its index in ``model.parameters()``) and the
+        hyperparameters. ``global_step`` is the checkpoint's own."""
+        return self.adam.state_dict()
+
+    def load_state_dict(self, state: dict) -> None:
+        self.adam.load_state_dict(state)
+        # Adam keeps its per-parameter step counts on the host unless it
+        # is fused or capturable; a checkpoint loaded onto the card would
+        # leave them there
+        for s in self.adam.state.values():
+            if torch.is_tensor(s.get("step")):
+                s["step"] = s["step"].cpu()
 
 
 def default_optimizer(model: nn.Module, learning_rate: float = 1e-4,

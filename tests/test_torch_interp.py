@@ -403,23 +403,26 @@ APP_ARGS = ["--batch-size", "2", "--height", "32", "--width", "64",
             "2", "--ckpt-every", "100"]
 
 
-def test_pretrain_app_runs_on_cpu(capsys):
-    metrics = pretrain_interp.main(APP_ARGS + ["--steps", "2"])
+def test_pretrain_app_runs_on_cpu(capsys, tmp_path):
+    metrics = pretrain_interp.main(APP_ARGS + ["--steps", "2", "--run-root",
+                                               str(tmp_path)])
     assert set(metrics) == {"loss", "mse_eval",
                             *(f"img_{i}_loss" for i in range(6))}
     assert all(np.isfinite(v) for v in metrics.values())
     err = capsys.readouterr().err
     assert "step 2: loss=" in err and "mse_eval=" in err
     assert "recalibrated BN stats" in err
+    assert f"run dir: {tmp_path / '000'}" in err
 
 
 @pytest.mark.parametrize("extra", [
     ["--data", "vimeo"], ["--data", "ytvos"], ["--data", "dummy"],
-    ["--load-ckpt", "runs/x"], ["--qat", "true"], ["--debug-nan", "true"],
-    ["--ckpt-every", "2"]])
-def test_pretrain_app_refuses_unported_modes(extra):
+    ["--qat", "true"], ["--debug-nan", "true"]])
+def test_pretrain_app_refuses_unported_modes(tmp_path, extra):
     with pytest.raises(NotImplementedError):
-        pretrain_interp.main(APP_ARGS + ["--steps", "2"] + extra)
+        pretrain_interp.main(APP_ARGS + ["--steps", "2", "--run-root",
+                                         str(tmp_path)] + extra)
+    assert not any(tmp_path.iterdir())
 
 
 @pytest.mark.parametrize("data", ["synthetic", "dummy"])
@@ -433,8 +436,7 @@ def test_interp_infer_app_runs_on_cpu(tmp_path, data):
         assert np.isfinite(results[0]["psnr"])
 
 
-@pytest.mark.parametrize("extra", [["--data", "vimeo"], ["--data", "ytvos"],
-                                   ["--load-ckpt", "runs/x"]])
+@pytest.mark.parametrize("extra", [["--data", "vimeo"], ["--data", "ytvos"]])
 def test_interp_infer_app_refuses_unported_modes(tmp_path, extra):
     with pytest.raises(NotImplementedError):
         interp_infer.main(["--device", "cpu", "--out-dir", str(tmp_path)]

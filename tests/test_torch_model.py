@@ -190,7 +190,7 @@ def test_fast_preset_fuses_only_the_finest_level():
         ["auto", "auto", "auto", "fused"]
 
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "qpwcnet_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "qpwcnet_tpu")
 
 
 def _forbidden_imports(path: Path) -> list[str]:
@@ -212,7 +212,8 @@ def _forbidden_imports(path: Path) -> list[str]:
 @pytest.mark.parametrize("check", ["static", "subprocess"])
 def test_port_imports_no_jax(check):
     """The port package, chip_smoke.py and every module they hold import
-    neither jax nor the JAX package: statically, every ``import`` and
+    neither jax (nor flax, optax or orbax) nor the JAX package:
+    statically, every ``import`` and
     ``from`` in every file (including imports inside functions, which run
     only on some paths); and at run time, the modules imported in a fresh
     interpreter."""
@@ -229,7 +230,9 @@ def test_port_imports_no_jax(check):
             "qpwcnet_torch.train, qpwcnet_torch.data, "
             "qpwcnet_torch.data.sintel, qpwcnet_torch.apps.train_flow, "
             "qpwcnet_torch.apps.pretrain_interp, "
-            "qpwcnet_torch.apps.interp_infer; "
+            "qpwcnet_torch.apps.interp_infer, "
+            "qpwcnet_torch.apps.eval_sintel, qpwcnet_torch.utils.runs, "
+            "qpwcnet_torch.train.checkpoint, qpwcnet_torch.train.metrics; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; "
             "assert not bad, bad")

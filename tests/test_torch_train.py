@@ -27,7 +27,11 @@ from qpwcnet_tpu.train.train_state import default_optimizer as j_default_opt
 from qpwcnet_torch.apps import train_flow
 from qpwcnet_torch.data import preprocess_flow_batch, synthetic_flow_batch
 from qpwcnet_torch.models import build_flow_net, load_flax_variables
-from qpwcnet_torch.models.from_flax import to_flax_tree
+from qpwcnet_torch.models.from_flax import (
+    load_flax_opt_state,
+    to_flax_opt_state,
+    to_flax_tree,
+)
 from qpwcnet_torch.ops.warp import backward_warp
 from qpwcnet_torch.train import (
     default_optimizer,
@@ -172,6 +176,127 @@ def test_train_step_matches_jax(flow_setup, head_scale, residual):
     _check_params(to_flax_tree(model), ref_j, grads_j)
 
 
+def _adam_of(opt_state):
+    """The ScaleByAdamState inside an optax chain state."""
+    nodes = jax.tree_util.tree_leaves(
+        opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
+    return next(n for n in nodes if isinstance(n, optax.ScaleByAdamState))
+
+
+def _as_grads(model, tree, stats):
+    """Set each parameter's .grad to a Flax-layout gradient tree's leaf."""
+    scratch = load_flax_variables(build_flow_net(0, "cpu"),
+                                  {"params": tree, "batch_stats": stats})
+    for p, g in zip(model.parameters(), scratch.parameters()):
+        p.grad = g.detach().clone()
+
+
+@pytest.mark.parametrize("kind", ["plain", "reference"])
+def test_optimizer_state_carried_from_jax(flow_setup, kind):
+    """A JAX TrainState after 2 steps (the plain chain: NaN scrub ->
+    Adam; the reference chain: NaN scrub -> AGC -> Adam) carried into the
+    port (load_flax_variables, load_flax_opt_state), then one more step
+    in each on the same batch. The port's full step holds
+    test_train_step_matches_jax's tolerances for the loss, every
+    gradient (plain chain), the BatchNorm statistics and the 2 lr bound
+    on every parameter; the port's chain stepped with JAX's own gradient
+    holds the
+    parameters to 1e-3 lr plus both results' float32 rounding (2^-22
+    |p|), and the new Adam moments to 1e-5 of each leaf's max (AGC's
+    norms are summed in another order)."""
+    model_j, variables = flow_setup
+    model_j = model_j.clone(head_scale="unit", residual=True)
+    v = _seeded(variables, "unit", k=0.5, hw=TEST_HW)
+    inner = (optax.chain(j_zero_nan_grads(), optax.adam(LR))
+             if kind == "plain" else j_default_opt(LR))
+    state = create_flow_train_state(model_j, v,
+                                    tx=optax.chain(_recording(), inner))
+    step_j = jax.jit(j_make_step())
+    for seed in (1, 2):
+        ims, flo = _batch(seed)
+        state, _ = step_j(state, {"ims": jnp.asarray(ims),
+                                  "flo": jnp.asarray(flo)})
+    v2 = {"params": _np_tree(state.params),
+          "batch_stats": _np_tree(state.batch_stats)}
+    opt2 = jax.device_get(state.opt_state)
+    ims, flo = _batch(3)
+    new, metrics = step_j(state, {"ims": jnp.asarray(ims),
+                                  "flo": jnp.asarray(flo)})
+    grads_j = _np_tree(new.opt_state[0])
+    chain = plain_optimizer if kind == "plain" else default_optimizer
+    kw = dict(head_scale="unit", residual=True)
+
+    def carried():
+        model = load_flax_variables(build_flow_net(0, "cpu", **kw), v2)
+        return model, load_flax_opt_state(chain(model, LR), opt2)
+
+    model, opt = carried()
+    assert {float(s["step"]) for s in opt.adam.state.values()} == {2.0}
+    m = make_flow_train_step()(model, opt, {"ims": torch.from_numpy(ims),
+                                           "flo": torch.from_numpy(flo)})
+    loss_j = float(metrics["loss"])
+    assert abs(float(m["loss"]) - loss_j) <= 1e-5 * max(1.0, abs(loss_j))
+    if kind == "plain":
+        # the reference chain's AGC scales .grad in place
+        got, want = _leaves(to_flax_tree(model, "grads")), _leaves(grads_j)
+        assert got.keys() == want.keys()
+        for k in want:
+            err = float(np.max(np.abs(got[k] - want[k])))
+            assert err <= _grad_tol(k, want) or err == 0.0, (k, err)
+    for k, w in _leaves(new.batch_stats).items():
+        parts = [p.strip("[]'") for p in k.split("][")]
+        name = ".".join(parts[:-1]).replace("upflow_", "upflows.")
+        mod = dict(model.named_modules())[name]
+        buf = mod.running_mean if parts[-1] == "mean" else mod.running_var
+        assert float(np.max(np.abs(buf.numpy() - w))) <= 1e-5, k
+    params_j = _leaves(_np_tree(new.params))
+    full = _leaves(to_flax_tree(model))
+    for k in params_j:
+        assert float(np.max(np.abs(full[k] - params_j[k]))) <= \
+            2.0 * LR * (1 + 1e-3), k
+
+    model, opt = carried()
+    _as_grads(model, grads_j, v2["batch_stats"])
+    opt.step()
+    got = _leaves(to_flax_tree(model))
+    for k, w in params_j.items():
+        tol = 1e-3 * LR + 2.0 ** -22 * np.abs(w)
+        assert np.all(np.abs(got[k] - w) <= tol), k
+    got_adam = _adam_of(to_flax_opt_state(opt, opt2))
+    want_adam = _adam_of(jax.device_get(new.opt_state))
+    assert int(got_adam.count) == int(want_adam.count) == 3
+    for moment in ("mu", "nu"):
+        g, w = (_leaves(getattr(got_adam, moment)),
+                _leaves(getattr(want_adam, moment)))
+        assert g.keys() == w.keys()
+        for k in w:
+            err = float(np.max(np.abs(g[k] - w[k])))
+            assert err <= 1e-5 * float(np.max(np.abs(w[k]))), (moment, k)
+
+
+def test_optimizer_state_round_trip():
+    """load_flax_opt_state inverts to_flax_opt_state, bit for bit, for
+    both chains' state structures."""
+    model = build_flow_net(0, "cpu", head_scale="unit", residual=True)
+    opt = plain_optimizer(model, LR)
+    ims, flo = _batch(4)
+    make_flow_train_step()(model, opt, {"ims": torch.from_numpy(ims),
+                                        "flo": torch.from_numpy(flo)})
+    params = to_flax_tree(model)
+    for tx in (optax.chain(j_zero_nan_grads(), optax.adam(LR)),
+               j_default_opt(LR)):
+        template = jax.device_get(tx.init(params))
+        tree = to_flax_opt_state(opt, template)
+        assert (jax.tree_util.tree_structure(tree)
+                == jax.tree_util.tree_structure(template))
+        back = load_flax_opt_state(plain_optimizer(model, LR), tree)
+        for p in model.parameters():
+            a, b = opt.adam.state[p], back.adam.state[p]
+            assert a.keys() == b.keys()
+            for name in a:
+                assert torch.equal(a[name], b[name]), name
+
+
 def test_train_loss_decreases_bf16():
     """bf16 compute, float32 parameters: the loss falls over 8 steps on a
     fixed batch and stays finite (test_train.py's JAX check)."""
@@ -248,19 +373,22 @@ APP_ARGS = ["--data", "synthetic", "--curriculum", "1", "--batch-size", "2",
             "--ckpt-every", "100"]
 
 
-def test_train_app_runs_on_cpu(capsys):
-    metrics = train_flow.main(APP_ARGS + ["--steps", "2"])
+def test_train_app_runs_on_cpu(capsys, tmp_path):
+    metrics = train_flow.main(APP_ARGS + ["--steps", "2", "--run-root",
+                                          str(tmp_path)])
     assert set(metrics) == {"loss", "epe"}
     assert all(np.isfinite(v) for v in metrics.values())
     err = capsys.readouterr().err
     assert "skip 1/4 stage" in err and "step 2: loss=" in err
     assert "epe_eval=" in err and "recalibrated BN stats" in err
+    assert f"run dir: {tmp_path / '000'}" in err
 
 
 @pytest.mark.parametrize("extra", [
     ["--data", "fc3d"], ["--data", "sintel"], ["--data", "synthetic-uniform"],
-    ["--load-ckpt", "runs/x"], ["--qat", "true"], ["--augment", "on"],
-    ["--ckpt-every", "2000", "--steps", "2000"]])
-def test_train_app_refuses_unported_modes(extra):
+    ["--qat", "true"], ["--augment", "on"]])
+def test_train_app_refuses_unported_modes(tmp_path, extra):
     with pytest.raises(NotImplementedError):
-        train_flow.main(APP_ARGS + ["--steps", "2"] + extra)
+        train_flow.main(APP_ARGS + ["--steps", "2", "--run-root",
+                                    str(tmp_path)] + extra)
+    assert not any(tmp_path.iterdir())
