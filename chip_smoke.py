@@ -9,8 +9,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
   2. build: nvcc-builds qpwcnet_torch/csrc/*.cu (sm_90a, one nvcc per
      source, all at once) and loads the library; K1's, K2's, K3's, K4a's,
      K4b's and K5's bf16 kernels must issue tensor-core instructions (HMMA
-     in cuobjdump's SASS), every instantiation, and K1's, K3's, K4a's and
-     K4b's float32 bodies none.
+     in cuobjdump's SASS), every instantiation (the wide stages' implicit
+     GEMM, csrc/conv_gemm.cuh, too), and K1's, K3's, K4a's and K4b's
+     float32 bodies and the GEMM's none.
   3. kernel equality: each CUDA kernel against its plain PyTorch version
      at the headline shapes (448x1024 input, batch 8, so 2B = 16 through
      the encoder), at batch 1 (the infer app's) and at one shape that is
@@ -18,17 +19,19 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      the training configuration, at C = 20 and on a map smaller than one
      tile; K3 also at the train step's level, at C = 20 and at C = 64,
      two chunks, each with flows inside the ±4 window and beyond it; K2
-     also at a ragged Co 32 shape, and in bf16 at encoder stage 2's Co
-     64, which float32 must refuse); the cost-volume backward
+     also at a ragged Co 32 shape, and at encoder stages 2-4 (Co 64, 128,
+     256) at the headline, the train step's 2B = 32 at 256x512, batch 1
+     and a ragged shape); the cost-volume backward
      kernels K4a and K4b at the five cost-volume levels of the training
      configuration (256x512, batch 16), at batch 1, at odd shapes (C % 8
      != 0 and W no multiple of 16; C = 256 in split channel groups), and
      the trainable cost volume's gradients against autograd of the plain
      cost volume at the finest training level.
   3c. K5, the fused decoder UpConv stage, against its plain version at the
-     decoder's stages 2 and 3 of the interpolator's training step, of the
-     flow headline and of batch 1, and at an odd shape, float32 and bf16;
-     the trainable K5's gradients against autograd of the plain version.
+     decoder's four stages of the interpolator's training step, of the
+     flow headline and of batch 1 (stages 0-1 also of the flow train
+     step), and at odd shapes, float32 and bf16; the trainable K5's
+     gradients against autograd of the plain version.
   4. slice: PWCFlowNet at 448x1024 b8 with seeded, non-zero flow heads,
      exact and 'fast', against the plain model (stem_stages=0,
      cv_impl='plain') in bf16 and float32, with each kernel's launch
@@ -71,6 +74,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      infer --fast --load-ckpt at 448x1024 and interp_infer --load-ckpt:
      six more main paths, each with the launches its forwards and steps
      imply.
+  4e. the fully fused configuration (stem_stages=5, upconv_stages=4: K2
+     at every encoder stage, K5 at every decoder stage) on the three paths
+     through the library builders, against the plain models (also under
+     cudnn.deterministic): the flow forward at 448x1024 b8, exact (K1 5,
+     K2 5, K5 4) and 'fast' (K1 4, K3 1, K2 5, K5 4), bf16 and float32;
+     the flow train step at 256x512 b16, exact and 'fast', every gradient
+     (also K4a 5, K4b 5); the interpolator at 256x512 b8: the eval
+     forward, every pretraining-step gradient, the loss falling over 5
+     steps, and the library entry points (2 steps and an eval forward) as
+     a main path. Four main paths: fused_infer_exact, fused_infer_fast,
+     fused_train and fused_interp.
   5. times: CUDA events after warm-up, median of N: each kernel against
      its plain version at the headline shapes (K4a and K4b at the training
      levels, K5 at its six shapes, with its achieved GB/s), beside its
@@ -82,15 +96,20 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      forward, the flow train step, the interpolator forward and the
      pretraining step; K5's in-model effect (upconv_stages 0 beside 2:
      the interpolator's forward and pretraining step, the exact flow
-     forward) and K2's (stem_stages 0 beside 2: the exact flow forward).
+     forward) and K2's (stem_stages 0 beside 2: the exact flow forward);
+     the wide stages' (K2 at stages 2-4 and K5 at stages 0-1 of the
+     headline and the training steps); the fully fused configuration's
+     in-model effect (stem_stages 2 beside 5, upconv_stages 2 beside 4,
+     two rounds of turns, and the card's busy time by torch.profiler: the
+     exact flow forward, the flow train step, the pretraining step).
 
 The line before the card line is a JSON object with one entry per kernel:
 its launches summed over the main paths' runs (each run with the counts
 set to 0 just before it and read just after; each path's count is also
 listed), its largest error in phase 3/3c, and its kernel, plain, bound
-and library times summed over the shapes timed for it (K5: the
-interpolator's two training shapes); the last line is {"ok": true,
-"device": {...}}.
+and library times summed over the shapes timed for it (K2: the
+headline's five encoder stages; K5: the interpolator's four training
+stages); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -163,14 +182,40 @@ UPCONV_SHAPES = [((16, 32, 64, 128), 32), ((16, 64, 128, 64), 16),
                  ((16, 56, 128, 128), 32), ((16, 112, 256, 64), 16),
                  ((2, 32, 64, 128), 32), ((2, 64, 128, 64), 16),
                  ((3, 13, 37, 128), 32)]
+# K5's wide stages (the implicit GEMM), decoder stages 0 and 1: the
+# interpolator's training step (2B = 16 at 256x512), the flow train step
+# (2B = 32), the flow headline (2B = 16 at 448x1024), batch 1 and one
+# shape that is no tile multiple
+UPCONV_WIDE_SHAPES = [((16, 8, 16, 256), 128), ((16, 16, 32, 256), 64),
+                      ((32, 8, 16, 256), 128), ((32, 16, 32, 256), 64),
+                      ((16, 14, 32, 256), 128), ((16, 28, 64, 256), 64),
+                      ((2, 14, 32, 256), 128), ((2, 28, 64, 256), 64),
+                      ((3, 7, 13, 256), 128), ((3, 9, 11, 256), 64)]
 # K2's shapes, (B, H, W, Ci) -> Co: encoder stages 0 and 1 of the flow
 # headline (2B = 16 at 448x1024) and of batch 1, one shape that is no
 # tile multiple at each of Co 16 and 32, and stage 2 of the headline
-# (Co 64: bf16 only, float32 refuses it)
+# (Co 64: bf16's fused tile, float32's implicit GEMM)
 STEM_SHAPES = [((2 * B, H, W, 3), 16), ((2 * B, H // 2, W // 2, 16), 32),
                ((2, H, W, 3), 16), ((2, H // 2, W // 2, 16), 32),
                ((2, 70, 90, 3), 16), ((3, 38, 70, 16), 32),
                ((2 * B, H // 4, W // 4, 32), 64)]
+# K2 at stage 2 (Co 64) of the train step (2B = 32 at 256x512), of batch
+# 1 and at no tile multiple; stages 3 and 4 (the implicit GEMM in both
+# dtypes) at the headline, the train step, batch 1 and no tile multiple
+STEM_WIDE_SHAPES = [
+    ((2 * TRAIN_B, TRAIN_H // 4, TRAIN_W // 4, 32), 64),
+    ((2, H // 4, W // 4, 32), 64), ((3, 38, 70, 32), 64),
+    ((2 * B, H // 8, W // 8, 64), 128), ((2 * B, H // 16, W // 16, 128), 256),
+    ((2 * TRAIN_B, TRAIN_H // 8, TRAIN_W // 8, 64), 128),
+    ((2 * TRAIN_B, TRAIN_H // 16, TRAIN_W // 16, 128), 256),
+    ((2, H // 8, W // 8, 64), 128), ((2, H // 16, W // 16, 128), 256),
+    ((3, 26, 38, 64), 128), ((3, 14, 22, 128), 256)]
+# csrc/conv_gemm.cuh's modes: K2's stride-2 and stride-1 convs, K5's
+# transpose conv
+GEMM_MODES = {"0": "conv s2", "1": "conv s1", "2": "up"}
+# The fully fused configuration: every encoder stage through K2, every
+# decoder stage through K5
+FUSED_KW = dict(stem_stages=5, upconv_stages=4)
 # The H100 SXM's published peaks (NVIDIA data sheet, 700 W): device
 # memory bytes/s and dense bf16 tensor-core operations/s
 PEAK_BYTES = 3.35e12
@@ -375,7 +420,7 @@ def sass_tensor_cores(lib_path, bin_dir) -> None:
         elif name and "HMMA" in line:
             counts[name] += 1
     mma, f32, stem, stem32, cv, cv32 = {}, {}, {}, {}, {}, {}
-    bwd, bwd32, wcv, wcv32 = {}, {}, {}, {}
+    bwd, bwd32, wcv, wcv32, gemm, gemm32 = {}, {}, {}, {}, {}, {}
     for name, n in counts.items():
         m = re.search(r"cost_volume_mma_kernelILi(\d+)ELi(\d+)E", name)
         if m:
@@ -405,11 +450,19 @@ def sass_tensor_cores(lib_path, bin_dir) -> None:
         m = re.search(r"stem_kernelILi(\d+)E", name)
         if m:
             stem32[f"Co {m[1]}"] = n
+        m = re.search(r"conv_gemm_mma_kernelILi(\d)ELi(\d+)ELi(\d+)E", name)
+        if m:
+            gemm[f"{GEMM_MODES[m[1]]} {m[2]}x{m[3]}"] = n
+        m = re.search(r"conv_gemm_f32_kernelILi(\d)E", name)
+        if m:
+            gemm32[GEMM_MODES[m[1]]] = n
     log(f"  SASS HMMA count: K1 bf16 {cv}, K1 float32 {cv32}")
     log(f"  SASS HMMA count: K3 bf16 {wcv}, K3 float32 {wcv32}")
     log(f"  SASS HMMA count: K4 bf16 {bwd}, K4 float32 {bwd32}")
     log(f"  SASS HMMA count: K5 bf16 {mma}, K5 float32 {f32}")
     log(f"  SASS HMMA count: K2 bf16 {stem}, K2 float32 {stem32}")
+    log(f"  SASS HMMA count: the wide stages' GEMM (K2 stages 3-4: conv "
+        f"s2, s1; K5 stages 0-1: up) bf16 {gemm}, float32 {gemm32}")
     check(len(cv) == 3 and all(n > 0 for n in cv.values()),
           f"K1's bf16 body issues no HMMA: {cv}")
     check(len(cv32) == 1 and all(n == 0 for n in cv32.values()),
@@ -427,6 +480,10 @@ def sass_tensor_cores(lib_path, bin_dir) -> None:
           f"K5's bf16 body issues no HMMA: {mma}")
     check(len(stem) == 6 and all(n > 0 for n in stem.values()),
           f"K2's bf16 body issues no HMMA: {stem}")
+    check(len(gemm) == 8 and all(n > 0 for n in gemm.values()),
+          f"the wide stages' bf16 GEMM issues no HMMA: {gemm}")
+    check(len(gemm32) == 3 and all(n == 0 for n in gemm32.values()),
+          f"the wide stages' float32 GEMM is not the CUDA-core one: {gemm32}")
 
 
 def phase_kernels(dev):
@@ -435,7 +492,7 @@ def phase_kernels(dev):
     from qpwcnet_torch.ops.cost_volume import cost_volume_plain
     from qpwcnet_torch.ops.cuda.cost_volume_kernel import cost_volume_cuda
     from qpwcnet_torch.ops.cuda.stem_kernel import (
-        STEM_CHANNELS, downconv_stage_cuda, downconv_stage_plain)
+        downconv_stage_cuda, downconv_stage_plain)
     from qpwcnet_torch.ops.cuda.warp_cv_kernel import (
         warp_cost_volume_cuda, warp_cost_volume_plain)
 
@@ -483,20 +540,12 @@ def phase_kernels(dev):
                     warp_cost_volume_cuda(prv, nxt, flow),
                     warp_cost_volume_plain(prv, nxt, flow),
                     rel, errs, "warp_cost_volume")
-        for (b, h, w, cin), cout in STEM_SHAPES:
+        for (b, h, w, cin), cout in STEM_SHAPES + STEM_WIDE_SHAPES:
             x = rand((b, h, w, cin), dtype, 0.5)
             params = [(rand((cout, ci, 3, 3), torch.float32,
                             (9 * ci) ** -0.5),
                        rand((cout,), torch.float32, 0.1))
                       for ci in (cin, cout, cout)]
-            if cout not in STEM_CHANNELS[dtype]:
-                try:
-                    downconv_stage_cuda(x, params, dtype)
-                except ValueError as e:
-                    log(f"  K2 {dn} ({b},{h},{w},{cin})->{cout}: refused "
-                        f"({e})")
-                    continue
-                fail(f"K2 {dn} at Co {cout} did not refuse")
             # bf16: a one-ulp rounding flip in conv_a or conv_aa moves the
             # later convs' sums across rounding points too: 4 ulps
             got = downconv_stage_cuda(x, params, dtype)
@@ -616,7 +665,7 @@ def phase_kernels_upconv(dev, errs):
     for dtype in (torch.float32, torch.bfloat16):
         rel = REL_F32 if dtype == torch.float32 else 2 * REL_BF16
         dn = str(dtype).split(".")[-1]
-        for shape, co in UPCONV_SHAPES:
+        for shape, co in UPCONV_SHAPES + UPCONV_WIDE_SHAPES:
             x = torch.randn(shape, generator=g, device=dev).to(dtype)
             w, b = upconv_params(g, dev, shape[-1], co)
             got = upconv_stage_cuda(x, w, b, dtype)
@@ -1197,6 +1246,176 @@ def phase_interp(dev, x):
             "interp_infer_app": infer_counts}, batch
 
 
+def phase_fused(dev, x, batch, ibatch):
+    """Phase 4e: the fully fused configuration (FUSED_KW: K2 at every
+    encoder stage, K5 at every decoder stage) on the three paths at full
+    width and depth, against the plain models: the flow forward at
+    448x1024 b8, the flow train step at 256x512 b16 and the interpolator
+    at 256x512 b8 (eval forward, pretraining step, 5 steps of loss). Each
+    path's launches, counted from 0 just before it, feed the kernels
+    line."""
+    import numpy as np
+    import torch
+
+    from qpwcnet_torch.models import build_interpolator
+    from qpwcnet_torch.ops import cuda as kernels
+    from qpwcnet_torch.train import (
+        create_interp_train_state, make_interp_train_step, plain_optimizer)
+
+    log(f"== phase 4e: the fully fused configuration {FUSED_KW} against "
+        f"{PLAIN_KW}")
+    t_phase = time.perf_counter()
+    bf16, f32 = torch.bfloat16, torch.float32
+    paths = {}
+    fwd = {"exact": counts_of(K1=5, K2=5, K5=4),
+           "fast": counts_of(K1=4, K2=5, K3=1, K5=4)}
+    with torch.inference_mode():
+        for dtype in (bf16, f32):
+            dn = str(dtype).split(".")[-1]
+            want = build(dtype, dev, **PLAIN_KW)(x)
+            for mode, cv in (("exact", "auto"), ("fast", "fast")):
+                m = build(dtype, dev, cv_impl=cv, **FUSED_KW)
+                kernels.reset_launch_counts()
+                out = m(x)
+                torch.cuda.synchronize()
+                counts = kernels.launch_counts()
+                log(f"  flow forward {mode} {dn} {H}x{W} b{B}: launches "
+                    f"{counts}, mean|flow|={float(out.abs().mean()):.3f} px")
+                check(counts == fwd[mode], f"fused flow forward {mode} "
+                      f"{dn}: launches {counts}, expected {fwd[mode]}")
+                if dtype == bf16:
+                    paths[f"fused_infer_{mode}"] = counts
+                if mode == "exact":
+                    compare_model(f"fused flow exact vs plain {dn}", out,
+                                  want, dtype)
+                else:
+                    log(f"  fused fast vs plain {dn} (window-warp clamp at "
+                        f"±4): max {max_err(out, want):.3e} px")
+                del m, out
+            del want
+            torch.cuda.empty_cache()
+
+    # The flow train step: every gradient against the plain model's.
+    per_step = {"exact": counts_of(K1=5, K2=5, K5=4, K4a=5, K4b=5),
+                "fast": counts_of(K1=5, K2=5, K3=1, K5=4, K4a=5, K4b=5),
+                "plain": counts_of()}
+    plain32 = None
+    for dtype in (f32, bf16):
+        dn = str(dtype).split(".")[-1]
+        grads = {}
+        for mode, kw in (("exact", dict(cv_impl="auto", **FUSED_KW)),
+                         ("fast", dict(cv_impl="fast", **FUSED_KW)),
+                         ("plain", PLAIN_KW)):
+            m = build_train(dtype, dev, **kw)
+            loss, grads[mode], counts = grad_step(m, batch)
+            log(f"  train step {mode} {dn}: loss {loss:.6f}, launches "
+                f"{counts}")
+            check(np.isfinite(loss), f"fused {mode} {dn}: loss {loss}")
+            check(counts == per_step[mode], f"fused train step {mode} {dn}: "
+                  f"launches {counts}, expected {per_step[mode]}")
+            if dtype == bf16 and mode == "exact":
+                paths["fused_train"] = counts
+            del m
+            torch.cuda.empty_cache()
+        for mode in ("exact", "fast"):
+            compare_grads(f"fused {mode} vs plain grads {dn}", grads[mode],
+                          grads["plain"], plain32)
+        plain32 = grads["plain"]
+        del grads
+    del plain32
+
+    # The interpolator: the eval forward and one pretraining step against
+    # the plain interpolator, then the loss over 5 steps.
+    with torch.inference_mode():
+        for dtype in (bf16, f32):
+            dn = str(dtype).split(".")[-1]
+            outs = {}
+            for mode, kw in (("fused", dict(cv_impl="auto", **FUSED_KW)),
+                             ("plain", PLAIN_KW)):
+                m = build_interp(dtype, dev, k=1.5, **kw)
+                kernels.reset_launch_counts()
+                outs[mode] = m(ibatch["ims"], return_flows=True)
+                torch.cuda.synchronize()
+                counts = kernels.launch_counts()
+                want = fwd["exact"] if mode == "fused" else counts_of()
+                check(counts == want, f"interp {mode} {dn}: launches "
+                      f"{counts}, expected {want}")
+                del m
+            compare_model(f"fused interp image vs plain {dn}",
+                          outs["fused"][0], outs["plain"][0], dtype)
+            for d, name in enumerate(("flos_01", "flos_10")):
+                worst = max(range(6), key=lambda i: max_err(
+                    outs["fused"][1][d][i], outs["plain"][1][d][i]))
+                compare_model(f"fused interp {name}[{worst}] (worst of 6) "
+                              f"vs plain {dn}", outs["fused"][1][d][worst],
+                              outs["plain"][1][d][worst], dtype)
+            del outs
+            torch.cuda.empty_cache()
+    plain32 = None
+    for dtype in (f32, bf16):
+        dn = str(dtype).split(".")[-1]
+        grads = {}
+        for mode, kw in (("fused", dict(cv_impl="auto", **FUSED_KW)),
+                         ("plain", PLAIN_KW)):
+            m = build_interp(dtype, dev, k=TRAIN_K, **kw)
+            loss, grads[mode], counts = grad_step(m, ibatch,
+                                                  make_interp_train_step)
+            want = per_step["exact"] if mode == "fused" else counts_of()
+            log(f"  pretraining step {mode} {dn}: loss {loss:.6f}, "
+                f"launches {counts}")
+            check(np.isfinite(loss), f"interp {mode} {dn}: loss {loss}")
+            check(counts == want, f"fused pretraining step {mode} {dn}: "
+                  f"launches {counts}, expected {want}")
+            del m
+            torch.cuda.empty_cache()
+        compare_grads(f"fused interp vs plain grads {dn}", grads["fused"],
+                      grads["plain"], plain32)
+        plain32 = grads["plain"]
+        del grads
+    del plain32
+    m = build_interp(f32, dev, k=0.0, head_scale="unit", residual=True,
+                     cv_impl="auto", **FUSED_KW)
+    opt = plain_optimizer(m, 3e-4)
+    step = make_interp_train_step()
+    losses = [float(step(m, opt, ibatch)["loss"]) for _ in range(5)]
+    log(f"  fused interp float32 ('unit' heads, residual), 5 steps on one "
+        f"batch (Adam 3e-4): losses {[round(v, 6) for v in losses]}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"fused interp loss did not fall: {losses}")
+    del m, opt
+    torch.cuda.empty_cache()
+
+    # The library entry points, as phase 4c's main path: 2 pretraining
+    # steps on fresh augmented batches and one eval forward, bf16.
+    n_steps = 2
+    kernels.reset_launch_counts()
+    model = build_interpolator(SEED, dev, dtype=bf16, cv_impl="auto",
+                               **FUSED_KW)
+    opt = create_interp_train_state(model, 1e-4)
+    step = make_interp_train_step()
+    metrics = [step(model, opt, interp_batch(dev, SEED + 9 + i, True))
+               for i in range(n_steps)]
+    model.eval()
+    with torch.no_grad():
+        img = model(ibatch["ims"])
+    torch.cuda.synchronize()
+    paths["fused_interp"] = kernels.launch_counts()
+    losses = [float(mt["loss"]) for mt in metrics]
+    log(f"  fused interp main path: losses {losses}, launches "
+        f"{paths['fused_interp']}")
+    check(all(np.isfinite(losses)) and bool(torch.isfinite(img).all()),
+          "fused interp main path: non-finite")
+    n_fwd = n_steps + 1
+    check(paths["fused_interp"] == counts_of(
+        K1=5 * n_fwd, K2=5 * n_fwd, K5=4 * n_fwd, K4a=5 * n_steps,
+        K4b=5 * n_steps), f"fused interp main path launches "
+          f"{paths['fused_interp']}")
+    del model, opt, img
+    torch.cuda.empty_cache()
+    log(f"  phase 4e wall time {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def state_diff(a, b) -> list:
     """The leaves in which two checkpoints (torch.load of state.pt) or
     two (model, chain) pairs' states differ: the step, every state_dict
@@ -1545,6 +1764,19 @@ def bound_upconv(b, h, w, ci, co):
     return bound(upconv_bytes(b, h, w, ci, co), 2 * 4 * ci * b * 4 * h * w * co)
 
 
+def device_time(fn) -> float:
+    """``cv_split.device_ms`` of fn, or nan where the profiler kept no
+    kernel record in any of its windows (it drops records now and then):
+    a device time that was not measured, logged as such and as nan."""
+    from qpwcnet_torch.utils.cv_split import device_ms
+
+    try:
+        return device_ms(fn)
+    except RuntimeError as e:
+        log(f"    device time not measured: {e}")
+        return math.nan
+
+
 class Totals:
     """Each kernel's summed times and bound over the shapes timed for the
     kernels line."""
@@ -1583,7 +1815,6 @@ def phase_times(dev, x, batch, ibatch):
     from qpwcnet_torch.ops.cuda.warp_cv_kernel import (
         warp_cost_volume_cuda, warp_cost_volume_plain)
     from qpwcnet_torch.quantize.qlayers import same_pads
-    from qpwcnet_torch.utils.cv_split import device_ms
 
     log(f"== phase 5: times (bf16, CUDA events, median of {N_TIMED} after "
         "warm-up; order plain, kernel, kernel, plain, reported the mean "
@@ -1623,7 +1854,7 @@ def phase_times(dev, x, batch, ibatch):
                          lambda: cost_volume_plain(prv, nxt), bnd)
             totals.add("cost_volume", k, p, bnd)
             kc = time_chain_ms(lambda: cost_volume_cuda(prv, nxt))
-            kd = device_ms(lambda: cost_volume_cuda(prv, nxt))
+            kd = device_time(lambda: cost_volume_cuda(prv, nxt))
             chained, device = chained + kc, device + kd
             nbytes = bnd[0] * 1e-3 * PEAK_BYTES
             log(f"    {tag}: one call {nbytes / (k * 1e-3) / 1e9:.1f} GB/s; "
@@ -1635,11 +1866,14 @@ def phase_times(dev, x, batch, ibatch):
         log(f"  K1 over the five levels: one call {r['ms']:.4f} ms, chained "
             f"{chained:.4f} ms, device {device:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms")
-        # K2 at encoder stages 0 and 1 of the headline (the kernels line
-        # sums these two) and stage 2 (Co 64, stem_stages=3)
-        beats = []
+        # K2 at the headline's five encoder stages (the kernels line sums
+        # all five, the fully fused forward's; stages 0-1 are logged
+        # apart), then stages 3 and 4 at the train step's shapes
+        beats, first_two = [], 0.0
         for n, ((b, h, w, cin), cout) in enumerate(
-                (STEM_SHAPES[0], STEM_SHAPES[1], STEM_SHAPES[-1])):
+                (STEM_SHAPES[0], STEM_SHAPES[1], STEM_SHAPES[6],
+                 STEM_WIDE_SHAPES[3], STEM_WIDE_SHAPES[4],
+                 STEM_WIDE_SHAPES[5], STEM_WIDE_SHAPES[6])):
             xs = rand((b, h, w, cin), scale=0.5)
             params = [(rand((cout, ci, 3, 3), torch.float32,
                             (9 * ci) ** -0.5),
@@ -1668,11 +1902,15 @@ def phase_times(dev, x, batch, ibatch):
                 f"(card time where the host keeps up): kernel {kc:.4f} ms, "
                 f"x{kc / max(bnd):.1f} the bound, "
                 f"{nbytes / (kc * 1e-3) / 1e9:.1f} GB/s | cuDNN {lc:.4f} ms")
-            if n < 2:
+            if n < 5:
                 totals.add("downconv_stage", k, p, bnd, lib)
                 beats.append(k < p and k < lib)
+            first_two += k if n < 2 else 0.0
+            del xs, params, wb
         log(f"  K2 below its plain version and cuDNN at {sum(beats)} of "
-            f"{len(beats)} headline stages")
+            f"{len(beats)} headline stages; stages 0-1 one call "
+            f"{first_two:.4f} ms, all five "
+            f"{totals.rows['downconv_stage']['ms']:.4f} ms")
         shape = (B, 224, 512, 32)
         prv, nxt = rand(shape), rand(shape)
         flow = rand(shape[:3] + (2,), torch.float32, 3.0)
@@ -1685,7 +1923,7 @@ def phase_times(dev, x, batch, ibatch):
                      lambda: warp_cost_volume_plain(prv, nxt, flow), bnd)
         totals.add("warp_cost_volume", k, p, bnd)
         kc = time_chain_ms(lambda: warp_cost_volume_cuda(prv, nxt, flow))
-        kd = device_ms(lambda: warp_cost_volume_cuda(prv, nxt, flow))
+        kd = device_time(lambda: warp_cost_volume_cuda(prv, nxt, flow))
         nbytes = bnd[0] * 1e-3 * PEAK_BYTES
         log(f"    {tag}: one call {nbytes / (k * 1e-3) / 1e9:.1f} GB/s, "
             f"x{k / max(bnd):.2f} the bound; chained x20 {kc:.4f} ms, "
@@ -1710,7 +1948,7 @@ def phase_times(dev, x, batch, ibatch):
                              lambda: plain(dacc, src), bnd)
                 totals.add(name, k, p, bnd)
                 kc = time_chain_ms(lambda: kern(dacc, src))
-                kd = device_ms(lambda: kern(dacc, src))
+                kd = device_time(lambda: kern(dacc, src))
                 chained, device = chained + kc, device + kd
                 nbytes = bnd[0] * 1e-3 * PEAK_BYTES
                 log(f"    {tag}: one call {nbytes / (k * 1e-3) / 1e9:.1f} "
@@ -1723,10 +1961,13 @@ def phase_times(dev, x, batch, ibatch):
                 f"chained {chained:.4f} ms, device {device:.4f} ms, bound "
                 f"{r['bound_ms']:.4f} ms")
         del dacc, src
-        # K5 at the six decoder shapes; the kernels line sums the two of
-        # the interpolator's training step (its main path)
+        # K5 at the six decoder shapes of stages 2-3 and the six of stages
+        # 0-1 (the interpolator's and the flow's training steps, the
+        # headline); the kernels line sums the interpolator's training
+        # step's four stages (the fully fused pretraining path)
         beats_plain, beats_lib = [], []
-        for n, (shape, co) in enumerate(UPCONV_SHAPES[:6]):
+        for n, (shape, co) in enumerate(UPCONV_SHAPES[:6]
+                                        + UPCONV_WIDE_SHAPES[:6]):
             xs = rand(shape)
             wt, bi = upconv_params(g, dev, shape[-1], co)
             wb = (wt.to(bf16), bi.to(bf16))
@@ -1751,7 +1992,7 @@ def phase_times(dev, x, batch, ibatch):
             beats_plain.append(k < p)
             if shape[0] == 16:
                 beats_lib.append(k <= lib)
-            if n < 2:
+            if n in (0, 1, 6, 7):
                 totals.add("upconv_stage", k, p, bnd, lib)
         del xs
         torch.cuda.empty_cache()
@@ -1815,20 +2056,28 @@ def phase_times(dev, x, batch, ibatch):
         torch.cuda.empty_cache()
     upconv_in_model(dev, x, ibatch)
     stem_in_model(dev, x)
+    fused_in_model(dev, x, batch, ibatch)
     return totals.rows
 
 
-def in_turns(tag, knob, runs, unit, per):
-    """Time runs[0]() and runs[2]() in turns 0, 2, 2, 0 and log both
-    settings of ``knob`` (ms each, ``per`` items a call in ``unit``)."""
+def in_turns(tag, knob, runs, unit, per, rounds=1):
+    """Time the two settings a, b of ``knob`` (``runs`` = {a: fn, b: fn},
+    each fn() the ms of one timing) in turns a, b, b, a, ``rounds`` times,
+    and log each setting's mean and turns, and b - a against the spread
+    of the turns within a setting (ms each, ``per`` items a call in
+    ``unit``)."""
+    a, b = runs
     t = {u: [] for u in runs}
-    for u in (0, 2, 2, 0):
-        t[u].append(runs[u]())
-    m0, m2 = (statistics.mean(t[u]) for u in (0, 2))
-    log(f"    {tag}: {knob}=0 {m0:.3f} ms ({t[0][0]:.3f}, {t[0][1]:.3f}), "
-        f"=2 {m2:.3f} ms ({t[2][0]:.3f}, {t[2][1]:.3f}); "
-        f"{per / m0 * 1e3:.2f} vs {per / m2 * 1e3:.2f} {unit}; 2 - 0 = "
-        f"{m2 - m0:+.3f} ms")
+    for _ in range(rounds):
+        for u in (a, b, b, a):
+            t[u].append(runs[u]())
+    ma, mb = (statistics.mean(t[u]) for u in (a, b))
+    spread = max(max(v) - min(v) for v in t.values())
+    log(f"    {tag}: {knob}={a} {ma:.3f} ms "
+        f"({', '.join(f'{v:.3f}' for v in t[a])}), ={b} {mb:.3f} ms "
+        f"({', '.join(f'{v:.3f}' for v in t[b])}); {per / ma * 1e3:.2f} vs "
+        f"{per / mb * 1e3:.2f} {unit}; {b} - {a} = {mb - ma:+.3f} ms, "
+        f"largest spread of one setting's turns {spread:.3f} ms")
 
 
 def stem_in_model(dev, x):
@@ -1892,6 +2141,90 @@ def upconv_in_model(dev, x, ibatch):
     torch.cuda.empty_cache()
 
 
+def busy_in_turns(tag, knob, fns, per_turn=3):
+    """The card's busy time (torch.profiler: the union of the device
+    kernels' intervals, per call) of the two settings a, b of ``knob``
+    (``fns`` = {a: fn, b: fn}), ``per_turn`` calls a turn, in turns a, b,
+    b, a: unlike the wall time, it leaves out the host's share."""
+    from qpwcnet_torch.utils.profiling import breakdown
+
+    a, b = fns
+    t = {u: [] for u in fns}
+    for u in (a, b, b, a):
+        try:
+            t[u].append(breakdown(fns[u], n=per_turn, warmup=1)["busy_ms"])
+        except RuntimeError as e:  # a window without device records
+            log(f"    {tag}, {knob}={u}: device busy not measured: {e}")
+            t[u].append(math.nan)
+    ma, mb = (statistics.mean(t[u]) for u in (a, b))
+    spread = max(max(v) - min(v) for v in t.values())
+    log(f"    {tag}, device busy: {knob}={a} {ma:.3f} ms "
+        f"({', '.join(f'{v:.3f}' for v in t[a])}), ={b} {mb:.3f} ms "
+        f"({', '.join(f'{v:.3f}' for v in t[b])}); {b} - {a} = "
+        f"{mb - ma:+.3f} ms, largest spread of one setting's turns "
+        f"{spread:.3f} ms")
+
+
+def fused_in_model(dev, x, batch, ibatch, rounds=2):
+    """The fully fused configuration's in-model effect, bf16, one knob at
+    a time from the kernels' earlier configuration (stem_stages=2,
+    upconv_stages=2): stem_stages 2 beside 5 and upconv_stages 2 beside
+    4, each in turns a, b, b, a ``rounds`` times on one model of each
+    (wall time, CUDA events) and then its card busy time (torch.profiler,
+    one round: 3 forwards or 1 step a turn; tracing a step's 4000-8000
+    launches takes seconds of host time), on the exact flow forward at
+    448x1024 b8, the flow train step at 256x512 b16 and the pretraining
+    step at 256x512 b8."""
+    import torch
+
+    from qpwcnet_torch.train import (
+        create_interp_train_state, make_flow_train_step,
+        make_interp_train_step, plain_optimizer)
+
+    bf16 = torch.bfloat16
+    log(f"  fused in-model (stem_stages 2 beside 5, upconv_stages 2 beside "
+        f"4, the other knob at 2; {rounds} x turns a, b, b, a; then the "
+        f"card's busy time in turns a, b, b, a):")
+    step = make_flow_train_step(0.0)
+    istep = make_interp_train_step()
+    for knob, (a, b) in (("stem_stages", (2, 5)), ("upconv_stages", (2, 4))):
+        def kw(u):
+            return dict(dict(stem_stages=2, upconv_stages=2), **{knob: u})
+
+        with torch.inference_mode():
+            fs = {u: build(bf16, dev, cv_impl="auto", **kw(u)) for u in (a, b)}
+            tag = f"flow forward exact {H}x{W} b{B}"
+            in_turns(tag, knob, {u: (lambda m=m: time_ms(lambda: m(x)))
+                                 for u, m in fs.items()}, "pairs/s", B, rounds)
+            busy_in_turns(tag, knob, {u: (lambda m=m: m(x))
+                                      for u, m in fs.items()})
+            del fs
+        torch.cuda.empty_cache()
+        ms = {u: build_train(bf16, dev, cv_impl="auto", **kw(u))
+              for u in (a, b)}
+        opts = {u: plain_optimizer(m, 1e-4) for u, m in ms.items()}
+        tag = f"flow train step exact {TRAIN_H}x{TRAIN_W} b{TRAIN_B}"
+        in_turns(tag, knob, {u: (lambda u=u: time_ms(
+            lambda: step(ms[u], opts[u], batch), n=N_STEPS_TIMED, warmup=2))
+            for u in ms}, "img/s", TRAIN_B, rounds)
+        busy_in_turns(tag, knob, {u: (lambda u=u: step(ms[u], opts[u], batch))
+                                  for u in ms}, per_turn=1)
+        del ms, opts
+        torch.cuda.empty_cache()
+        ms = {u: build_interp(bf16, dev, k=TRAIN_K, cv_impl="auto", **kw(u))
+              for u in (a, b)}
+        opts = {u: create_interp_train_state(m, 1e-4) for u, m in ms.items()}
+        tag = f"pretraining step {TRAIN_H}x{TRAIN_W} b{INTERP_B}"
+        in_turns(tag, knob, {u: (lambda u=u: time_ms(
+            lambda: istep(ms[u], opts[u], ibatch), n=N_STEPS_TIMED,
+            warmup=2)) for u in ms}, "img/s", INTERP_B, rounds)
+        busy_in_turns(tag, knob, {u: (lambda u=u: istep(ms[u], opts[u],
+                                                        ibatch))
+                                  for u in ms}, per_turn=1)
+        del ms, opts
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not (ROOT / "qpwcnet_torch" / "csrc").is_dir():
         fail(f"{ROOT} holds no qpwcnet_torch/csrc: run from the root of a "
@@ -1911,11 +2244,12 @@ def main() -> int:
         train_counts, batch = phase_train(dev)
         interp_paths, ibatch = phase_interp(dev, x)
         ckpt_paths = phase_ckpt(dev, batch)
+        fused_paths = phase_fused(dev, x, batch, ibatch)
     totals = phase_times(dev, x, batch, ibatch)
     log(f"== all phases passed in {time.perf_counter() - t0:.1f} s")
 
     paths = {"infer_app": infer_counts, "train_app": train_counts,
-             **interp_paths, **ckpt_paths}
+             **interp_paths, **ckpt_paths, **fused_paths}
     entries = []
     for name, meta in KERNELS.items():
         key = f"{name}_cuda"

@@ -63,11 +63,25 @@
 // equal to the plain version within 1e-5 (TF32 would not): a 16 x 16
 // tile, one thread all CO sums of a position, the intermediates
 // channel-major.
+//
+// Wide stages (bf16 CO 128 and 256, encoder stages 3-4; float32 CO 64,
+// 128 and 256): one 256 -> 256 conv's bf16 weights are 1.2 MB, five
+// times a block's shared memory, and the two intermediates and the
+// stride-2 input of even a 4 x 4 output tile take 131 KB, so the fused
+// tile would recompute conv_a on 4x and conv_aa on 2.25x the outputs.
+// These stages run one implicit GEMM a conv instead (conv_gemm.cuh), the
+// weights streamed through shared memory in 32-channel slices of a tap:
+// prep_w33 rounds the three convs' weights into the GEMM's layout, then
+// conv_a writes its output into `out`, conv_aa reads it into the
+// wrapper's scratch `tmp`, and conv_b reads that back into `out`. The
+// intermediates are rounded where the unfused composition rounds them.
+// Four device kernels, one wrapper launch, as the TPU's one pallas_call.
 #include <stdint.h>
 
 #include <atomic>
 
 #include "common.cuh"
+#include "conv_gemm.cuh"
 #include "mma.cuh"
 
 namespace qpw {
@@ -620,16 +634,94 @@ cudaError_t launch_stem_bf16(const void* x, const void* w1, const void* b1,
                                     Ci, s);
 }
 
+// ------------------------------------------------------ wide: conv_gemm.cuh
+
+// The three convs' OIHW float32 weights (CO, cin, 3, 3), cin = Cin for
+// conv_a and CO for the others, into conv_gemm.cuh's layout rounded to T
+// (blockIdx.y = conv): bf16 [tap][co][kp], float32 [tap][kp][co], kp =
+// cin rounded up to GEMM_K, zero past cin. A thread takes two channels of
+// one co, whose 9 taps are contiguous in the source.
+template <typename T>
+__global__ void prep_w33(const float* __restrict__ w1,
+                         const float* __restrict__ w2,
+                         const float* __restrict__ w3, T* __restrict__ dst,
+                         int Cin, int cip, int CO) {
+  const int k = blockIdx.y;
+  const float* w = k == 0 ? w1 : k == 1 ? w2 : w3;
+  const int cin = k == 0 ? Cin : CO, kp = k == 0 ? cip : CO;
+  T* d = dst + (k == 0 ? 0 : 9 * CO * (cip + (k - 1) * CO));
+  const int half = kp / 2;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < CO * half;
+       e += gridDim.x * blockDim.x) {
+    const int co = e / half, ci = 2 * (e % half);
+    const float* w0 = w + ((size_t)co * cin + ci) * 9;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const float v0 = ci < cin ? __ldg(w0 + tap) : 0.0f;
+      const float v1 = ci + 1 < cin ? __ldg(w0 + 9 + tap) : 0.0f;
+      if constexpr (std::is_same<T, float>::value) {
+        d[((size_t)tap * kp + ci) * CO + co] = v0;
+        d[((size_t)tap * kp + ci + 1) * CO + co] = v1;
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(d + ((size_t)tap * CO + co) * kp +
+                                           ci) = __floats2bfloat162_rn(v0, v1);
+      }
+    }
+  }
+}
+
+// A wide stage: wbuf holds 9 CO (cip + 2 CO) elements of T (cip = Cin
+// rounded up to GEMM_K), tmp one (B, H/2, W/2, CO) map.
+template <typename T>
+cudaError_t launch_stem_gemm(const void* x, const void* w1, const void* b1,
+                             const void* w2, const void* b2, const void* w3,
+                             const void* b3, void* out, void* wbuf, void* tmp,
+                             int B, int H, int W, int Ci, int CO,
+                             cudaStream_t stream) {
+  if (!tmp) return cudaErrorInvalidValue;
+  const int cip = (Ci + GEMM_K - 1) / GEMM_K * GEMM_K;
+  const int Ho = H / 2, Wo = W / 2;
+  const long long M = (long long)B * Ho * Wo;
+  if (M > 0x7fffffff) return cudaErrorInvalidValue;
+  T* wp = static_cast<T*>(wbuf);
+  prep_w33<T><<<dim3((CO * (cip > CO ? cip : CO) / 2 + 255) / 256, 3), 256,
+                 0, stream>>>(static_cast<const float*>(w1),
+                              static_cast<const float*>(w2),
+                              static_cast<const float*>(w3), wp, Ci, cip, CO);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  using F = const float*;
+  const ConvArgs a = {x, wp, static_cast<F>(b1), out, H, W, Ci, cip, CO,
+                      Ho, Wo, (int)M};
+  const ConvArgs aa = {out, wp + 9 * CO * cip, static_cast<F>(b2), tmp,
+                       Ho, Wo, CO, CO, CO, Ho, Wo, (int)M};
+  const ConvArgs ab = {tmp, wp + 9 * CO * (cip + CO), static_cast<F>(b3),
+                       out, Ho, Wo, CO, CO, CO, Ho, Wo, (int)M};
+  // bf16: CO 128 or 256, 128 channels a block
+  err = launch_conv_gemm<CONV_S2, T, 128>(a, stream);
+  if (err == cudaSuccess) err = launch_conv_gemm<CONV_S1, T, 128>(aa, stream);
+  if (err == cudaSuccess) err = launch_conv_gemm<CONV_S1, T, 128>(ab, stream);
+  return err;
+}
+
 }  // namespace qpw
 
 extern "C" int qpw_downconv_stage(const void* x, const void* w1,
                                   const void* b1, const void* w2,
                                   const void* b2, const void* w3,
-                                  const void* b3, void* out, int B, int H,
-                                  int W, int Cin, int Cout, int dtype,
-                                  void* stream) {
+                                  const void* b3, void* out, void* wbuf,
+                                  void* tmp, int B, int H, int W, int Cin,
+                                  int Cout, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B < 1 || H < 2 || W < 2 || Cin < 1) return cudaErrorInvalidValue;
+  // The wrapper passes the GEMM's scratch at the wide widths
+  // (ops/cuda/stem_kernel.py:STEM_GEMM_CHANNELS) and null otherwise.
+  if (wbuf && dtype == 0)
+    return qpw::launch_stem_gemm<float>(x, w1, b1, w2, b2, w3, b3, out, wbuf,
+                                        tmp, B, H, W, Cin, Cout, s);
+  if (wbuf && dtype == 1)
+    return qpw::launch_stem_gemm<qpw::bf16>(x, w1, b1, w2, b2, w3, b3, out,
+                                            wbuf, tmp, B, H, W, Cin, Cout, s);
   if (dtype == 0 && Cout == 16)
     return qpw::launch_stem_f32<16>(x, w1, b1, w2, b2, w3, b3, out, B, H, W,
                                     Cin, s);

@@ -65,6 +65,14 @@
 // stays equal to the plain version within 1e-5 (TF32 would not): one
 // warp per phase, each lane 4 positions x CO sums in registers, input and
 // weights in 16-channel float chunks.
+//
+// Wide stages (CO 64 and 128 at Ci 256, decoder stages 0-1, both
+// dtypes): the resident bf16 weights would be 0.5-1.1 MB, and one lane's
+// CO sums of 4 positions no longer fit in registers, so these stages run
+// the implicit GEMM of conv_gemm.cuh, one output phase a grid z, the 4
+// taps it reads (K = 4 x Ci) streamed through shared memory: prep_wt
+// rounds the weight into the GEMM's per-phase layout in the wrapper's
+// scratch, then one GEMM launch computes and writes every phase.
 #include <stdint.h>
 
 #include <cooperative_groups.h>
@@ -72,6 +80,7 @@
 #include <atomic>
 
 #include "common.cuh"
+#include "conv_gemm.cuh"
 #include "mma.cuh"
 
 namespace qpw {
@@ -530,14 +539,79 @@ cudaError_t launch_upconv_bf16(const void* x, const void* wt,
                                   stream);
 }
 
+// ------------------------------------------------------ wide: conv_gemm.cuh
+
+// The stored float32 transpose-conv weight Wt (Ci, CO, 4, 4) into
+// conv_gemm.cuh's layout rounded to T: slot (phase (r, s), tap (a, b)) =
+// (2r + s) * 4 + 2a + b holds Wt[:, :, 3-2a-r, 3-2b-s]; bf16
+// [slot][co][cip], float32 [slot][cip][co], zero past Ci. A thread takes
+// two channels of one co, whose 16 taps are contiguous in the source.
+template <typename T>
+__global__ void prep_wt(const float* __restrict__ wt, T* __restrict__ dst,
+                        int Ci, int cip, int CO) {
+  const int half = cip / 2;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < CO * half;
+       e += gridDim.x * blockDim.x) {
+    const int co = e / half, ci = 2 * (e % half);
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const int ry = 3 - k / 4, rx = 3 - k % 4;  // 2a + r, 2b + s
+      const int slot = ((ry & 1) * 2 + (rx & 1)) * 4 + (ry >> 1) * 2 +
+                       (rx >> 1);
+      const float v0 =
+          ci < Ci ? __ldg(wt + ((size_t)ci * CO + co) * 16 + k) : 0.0f;
+      const float v1 =
+          ci + 1 < Ci ? __ldg(wt + ((size_t)(ci + 1) * CO + co) * 16 + k)
+                      : 0.0f;
+      if constexpr (std::is_same<T, float>::value) {
+        dst[((size_t)slot * cip + ci) * CO + co] = v0;
+        dst[((size_t)slot * cip + ci + 1) * CO + co] = v1;
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(
+            dst + ((size_t)slot * CO + co) * cip + ci) =
+            __floats2bfloat162_rn(v0, v1);
+      }
+    }
+  }
+}
+
+// A wide stage: wbuf holds 16 CO cip elements of T (cip = Ci rounded up
+// to GEMM_K).
+template <typename T>
+cudaError_t launch_upconv_gemm(const void* x, const void* wt,
+                               const void* bias, void* out, void* wbuf,
+                               int B, int H, int W, int Ci, int CO,
+                               cudaStream_t stream) {
+  const int cip = (Ci + GEMM_K - 1) / GEMM_K * GEMM_K;
+  const long long M = (long long)B * H * W;
+  if (M > 0x7fffffff) return cudaErrorInvalidValue;
+  T* wp = static_cast<T*>(wbuf);
+  prep_wt<T><<<(CO * cip / 2 + 255) / 256, 256, 0, stream>>>(
+      static_cast<const float*>(wt), wp, Ci, cip, CO);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const ConvArgs a = {x, wp, static_cast<const float*>(bias), out, H, W,
+                      Ci, cip, CO, H, W, (int)M};
+  return CO % 128 ? launch_conv_gemm<CONV_UP, T, 64>(a, stream)
+                  : launch_conv_gemm<CONV_UP, T, 128>(a, stream);
+}
+
 }  // namespace qpw
 
 extern "C" int qpw_upconv_stage(const void* x, const void* wt,
-                                const void* bias, void* out, int B, int H,
-                                int W, int Ci, int Co, int dtype,
-                                void* stream) {
+                                const void* bias, void* out, void* wbuf,
+                                int B, int H, int W, int Ci, int Co,
+                                int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B < 1 || H < 1 || W < 1 || Ci < 1) return cudaErrorInvalidValue;
+  // The wrapper passes the GEMM's scratch at the wide widths
+  // (ops/cuda/upconv_kernel.py:UPCONV_GEMM_CHANNELS) and null otherwise.
+  if (wbuf && dtype == 0)
+    return qpw::launch_upconv_gemm<float>(x, wt, bias, out, wbuf, B, H, W,
+                                          Ci, Co, s);
+  if (wbuf && dtype == 1)
+    return qpw::launch_upconv_gemm<qpw::bf16>(x, wt, bias, out, wbuf, B, H,
+                                              W, Ci, Co, s);
   if (dtype == 0 && Co == 16)
     return qpw::launch_upconv_f32<16>(x, wt, bias, out, B, H, W, Ci, s);
   if (dtype == 0 && Co == 32)

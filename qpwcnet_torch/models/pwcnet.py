@@ -44,8 +44,9 @@ class Encoder(nn.Module):
     (ops/cuda/stem_kernel.py), reading the same parameters as the
     DownConv modules, with the unfused composition's gradients; on CPU
     tensors the forward is the unfused composition too, at any stage
-    count. On the card a stage whose width the kernel is not built for
-    (``STEM_CHANNELS``) raises at its launch.
+    count. On the card the kernel is built for every width of
+    ``ENCODER_FILTERS`` in float32 and bf16 (``STEM_CHANNELS``); a stage
+    of another width raises at its launch.
     """
 
     def __init__(self, filters: Sequence[int] = ENCODER_FILTERS,
@@ -80,8 +81,9 @@ class Decoder(nn.Module):
     (ops/cuda/upconv_kernel.py), reading the same parameters as the
     UpConv modules, with the unfused composition's gradients; on CPU
     tensors the forward is the unfused composition too, at any stage
-    count. On the card a stage whose width the kernel is not built for
-    (``UPCONV_CHANNELS``) raises at its launch.
+    count. On the card the kernel is built for every width of
+    ``DECODER_FILTERS`` in float32 and bf16 (``UPCONV_CHANNELS``); a
+    stage of another width raises at its launch.
     """
 
     def __init__(self, filters: Sequence[int] = DECODER_FILTERS,

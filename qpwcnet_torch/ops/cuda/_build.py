@@ -43,12 +43,22 @@ SIGNATURES = {
     "qpw_cost_volume_bwd_nxt": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # prv, nxt, flow, out, B, H, W, C, warp_window, dtype, stream
     "qpw_warp_cost_volume": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    # x, w1, b1, w2, b2, w3, b3, out, B, H, W, Cin, Cout, dtype, stream
-    "qpw_downconv_stage": [_P, _P, _P, _P, _P, _P, _P, _P,
+    # x, w1, b1, w2, b2, w3, b3, out, wbuf, tmp, B, H, W, Cin, Cout,
+    # dtype, stream
+    "qpw_downconv_stage": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _P],
-    # x, w, bias, out, B, H, W, Ci, Co, dtype, stream
-    "qpw_upconv_stage": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, bias, out, wbuf, B, H, W, Ci, Co, dtype, stream
+    "qpw_upconv_stage": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
+# The wide stages' implicit GEMM (csrc/conv_gemm.cuh) takes its weights
+# in a scratch buffer the wrapper allocates, with Cin padded to a
+# multiple of this.
+GEMM_K = 32
+
+
+def gemm_cip(cin: int) -> int:
+    """Cin rounded up to the GEMM's channel step."""
+    return -(-cin // GEMM_K) * GEMM_K
 
 _lock = threading.Lock()
 _lib = None

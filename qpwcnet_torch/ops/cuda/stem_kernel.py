@@ -28,7 +28,20 @@ are not needed.
   input, whose three taps of a kernel row are one k16 step.
 - float32: CUDA-core multiply-adds (TF32 would break the 1e-5 equality
   with the plain version), one thread all Co sums of a position, built
-  for Co 16 and 32 (at Co 64 its shared memory does not fit).
+  for Co 16 and 32.
+- The wide stages (bf16 Co 128 and 256, encoder stages 3-4; float32 Co
+  64, 128 and 256): one conv's weights outgrow a block's shared memory
+  (1.2 MB in bf16 at 256 -> 256), and a fused tile small enough to keep
+  both intermediates would recompute conv_a on 4x and conv_aa on 2.25x
+  its outputs. So each conv is one implicit GEMM launch
+  (``csrc/conv_gemm.cuh``: tensor cores in bf16, CUDA cores in float32)
+  with bias + Mish in its epilogue, the weights streamed through shared
+  memory in 32-channel slices of a tap, and the two intermediates in
+  device memory (a wrapper-allocated scratch map and the output itself;
+  at stage 4 they stay in L2). The weights are rounded into the GEMM's
+  layout by a small kernel first, in a second scratch buffer. One
+  wrapper call is one launch of K2, as the TPU's stage is one
+  ``pallas_call``; on the card it is four device kernels.
 """
 
 from __future__ import annotations
@@ -41,13 +54,18 @@ from qpwcnet_torch.ops.activations import mish
 from qpwcnet_torch.ops.cuda import _build
 from qpwcnet_torch.quantize.qlayers import conv2d_same
 
-# Output channel counts each body is compiled for (encoder stages 0-2 in
-# bf16, 0-1 in float32).
-STEM_CHANNELS = {torch.float32: (16, 32), torch.bfloat16: (16, 32, 64)}
-# The largest Ci > 4 of the bf16 body by Co: its staged input tile, the two
-# intermediates and the weights fill the block's 227 KB of shared memory
-# (csrc/stem.cu:StemCfg::smem); Ci <= 4 always fits.
-STEM_MAX_CI_BF16 = {16: 32, 32: 16, 64: 32}
+# Output channel counts each dtype is compiled for: every width of the
+# encoder (models/pwcnet.py:ENCODER_FILTERS).
+STEM_CHANNELS = {torch.float32: (16, 32, 64, 128, 256),
+                 torch.bfloat16: (16, 32, 64, 128, 256)}
+# Of those, the widths run as one implicit GEMM a conv (csrc/conv_gemm.cuh).
+STEM_GEMM_CHANNELS = {torch.float32: (64, 128, 256),
+                      torch.bfloat16: (128, 256)}
+# The largest Ci > 4 of the bf16 body by Co: the fused tile's staged
+# input, the two intermediates and the weights fill the block's 227 KB of
+# shared memory (csrc/stem.cu:StemCfg::smem); Ci <= 4 always fits. None:
+# the GEMM streams any Ci.
+STEM_MAX_CI_BF16 = {16: 32, 32: 16, 64: 32, 128: None, 256: None}
 
 Params = Sequence[tuple[torch.Tensor, torch.Tensor]]
 
@@ -93,8 +111,8 @@ def downconv_stage_cuda(x: torch.Tensor, params: Params,
     if c_out not in built:
         raise ValueError(f"the {dtype} CUDA stem kernel is built for {built}"
                          f" output channels, got {c_out}")
-    if (dtype == torch.bfloat16 and c_in > 4
-            and c_in > STEM_MAX_CI_BF16[c_out]):
+    cap = STEM_MAX_CI_BF16[c_out]
+    if dtype == torch.bfloat16 and cap is not None and c_in > cap:
         raise ValueError(f"the bf16 stem kernel takes at most "
                          f"{STEM_MAX_CI_BF16[c_out]} input channels (or at "
                          f"most 4) at Co={c_out}, got {c_in}")
@@ -110,10 +128,18 @@ def downconv_stage_cuda(x: torch.Tensor, params: Params,
         args += [wt, bt]
     out = torch.empty((b, h // 2, w // 2, c_out), dtype=dtype,
                       device=x.device)
+    wbuf = tmp = None
+    if c_out in STEM_GEMM_CHANNELS[dtype]:
+        # the three convs' weights in the GEMM's layout, and conv_aa's
+        # output (conv_a's goes into `out`, which conv_b overwrites)
+        wbuf = torch.empty(9 * c_out * (_build.gemm_cip(c_in) + 2 * c_out),
+                           dtype=dtype, device=x.device)
+        tmp = torch.empty_like(out)
     lib = _build.library()
     with _build.on_device(x.device):
         err = lib.qpw_downconv_stage(
             x.data_ptr(), *(t.data_ptr() for t in args), out.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in (wbuf, tmp)),
             b, h, w, c_in, c_out, _build.dtype_code(dtype),
             _build.stream_ptr(x.device))
     _build.check(err, "qpw_downconv_stage")

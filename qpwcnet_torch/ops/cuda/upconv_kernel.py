@@ -4,8 +4,9 @@ Replaces: ``qpwcnet_tpu/ops/pallas/upconv_kernel.py:_upconv_kernel`` (via
 ``_upconv_impl`` / ``upconv_stage_pallas``).
 
 Computes ConvTranspose 4x4/s2 'SAME' + bias + Mish in one launch, NHWC
-in and out: (B, H, W, Ci) -> (B, 2H, 2W, Co), Co in {16, 32} (decoder
-stages 2 and 3: 128 -> 32 and 64 -> 16 channels).
+in and out: (B, H, W, Ci) -> (B, 2H, 2W, Co), Co in {16, 32, 64, 128}
+(decoder stages 3, 2, 1 and 0: 64 -> 16, 128 -> 32, 256 -> 64 and
+256 -> 128 channels).
 
 What bounds it on the H100: per input position, 4 phases x 4 taps x Ci
 x Co multiply-adds against 2·Ci bytes in and 8·Co bytes out (256
@@ -40,6 +41,16 @@ validity masks are not needed.
   equality with the plain version), each lane 4 positions x Co sums in
   registers, input and weights through shared memory 16 channels at a
   time.
+- The wide stages (Co 64 and 128 at Ci 256, decoder stages 0-1, both
+  dtypes): the resident bf16 weights would be 0.5-1.1 MB, two to five
+  times a block's shared memory, and a lane's Co sums no longer fit in
+  registers. They run the implicit GEMM of ``csrc/conv_gemm.cuh``
+  (tensor cores in bf16, CUDA cores in float32), one output phase a grid
+  z, M = input positions, N = Co, K = the phase's 4 taps x Ci streamed
+  through shared memory in 32-channel slices, bias + Mish in the
+  epilogue. A small kernel first rounds the weight into the GEMM's
+  per-phase layout, in a scratch buffer the wrapper allocates: two device
+  kernels a launch.
 """
 
 from __future__ import annotations
@@ -53,12 +64,15 @@ from qpwcnet_torch.layout import nchw, nhwc
 from qpwcnet_torch.ops.activations import mish
 from qpwcnet_torch.ops.cuda import _build
 
-# Output channel counts the kernel is compiled for (decoder stages 2, 3).
-UPCONV_CHANNELS = (16, 32)
+# Output channel counts the kernel is compiled for: every stage of the
+# decoder (models/pwcnet.py:DECODER_FILTERS).
+UPCONV_CHANNELS = (16, 32, 64, 128)
+# Of those, the widths run as the implicit GEMM of csrc/conv_gemm.cuh.
+UPCONV_GEMM_CHANNELS = (64, 128)
 # The largest Ci of the bf16 body by Co: its resident weights and its two
 # warp groups' input tiles fill the block's 227 KB of shared memory
-# (csrc/upconv.cu:um_smem_bytes).
-UPCONV_MAX_CI_BF16 = {16: 176, 32: 144}
+# (csrc/upconv.cu:um_smem_bytes). None: the GEMM streams any Ci.
+UPCONV_MAX_CI_BF16 = {16: 176, 32: 144, 64: None, 128: None}
 
 Params = Sequence[tuple[torch.Tensor, torch.Tensor]]
 
@@ -98,7 +112,8 @@ def upconv_stage_cuda(x: torch.Tensor, weight: torch.Tensor,
     if c_out not in UPCONV_CHANNELS:
         raise ValueError(f"the CUDA upconv kernel is built for "
                          f"{UPCONV_CHANNELS} output channels, got {c_out}")
-    if dtype == torch.bfloat16 and c_in > UPCONV_MAX_CI_BF16[c_out]:
+    cap = UPCONV_MAX_CI_BF16[c_out]
+    if dtype == torch.bfloat16 and cap is not None and c_in > cap:
         raise ValueError(f"the bf16 upconv kernel takes at most "
                          f"{UPCONV_MAX_CI_BF16[c_out]} input channels at "
                          f"Co={c_out}, got {c_in}")
@@ -109,10 +124,14 @@ def upconv_stage_cuda(x: torch.Tensor, weight: torch.Tensor,
     _build.require(wt, "weight", device=x.device)
     _build.require(bt, "bias", (c_out,), device=x.device)
     out = x.new_empty((b, 2 * h, 2 * w, c_out))
+    # the wide stages' weights in the GEMM's layout: 4 phases x 4 taps
+    wbuf = (x.new_empty(16 * c_out * _build.gemm_cip(c_in))
+            if c_out in UPCONV_GEMM_CHANNELS else None)
     lib = _build.library()
     with _build.on_device(x.device):
         err = lib.qpw_upconv_stage(
             x.data_ptr(), wt.data_ptr(), bt.data_ptr(), out.data_ptr(),
+            None if wbuf is None else wbuf.data_ptr(),
             b, h, w, c_in, c_out, _build.dtype_code(dtype),
             _build.stream_ptr(x.device))
     _build.check(err, "qpw_upconv_stage")

@@ -34,8 +34,8 @@ CATEGORIES = (
     # cores)
     ("K4a", r"cv_bwd_kernel<[^>]*, false>|cv_bwd_mma_kernel<false"),
     ("K4b", r"cv_bwd_kernel<[^>]*, true>|cv_bwd_mma_kernel<true"),
-    ("K2", r"qpw::stem_(mma_)?kernel"),
-    ("K5", r"qpw::upconv_(mma_)?kernel"),
+    ("K2", r"qpw::(stem_(mma_)?kernel|prep_w33|conv_gemm_\w+<[01][,>])"),
+    ("K5", r"qpw::(upconv_(mma_)?kernel|prep_wt|conv_gemm_\w+<2[,>])"),
     ("optimizer", r"multi_tensor|[Aa]dam"),
     ("cuDNN", r"cudnn|conv|xmma|implicit|gemm|cutlass|nchwToNhwc|nhwcToNchw"),
     ("gather/scatter", r"index|gather|scatter"),

@@ -105,8 +105,9 @@ def main() -> int:
         for fn in libs.values():
             def call(fn=fn):
                 _build.check(fn(x.data_ptr(), *(p.data_ptr() for p in params),
-                                out.data_ptr(), b, h, w, cin, cout, 1,
-                                _build.stream_ptr(dev)), "qpw_downconv_stage")
+                                out.data_ptr(), None, None, b, h, w, cin,
+                                cout, 1, _build.stream_ptr(dev)),
+                             "qpw_downconv_stage")
             cells.append(f"{chained_ms(call):.4f}")
         print(f"| ({b},{h},{w},{cin})->{cout} | " + " | ".join(cells) + " |",
               flush=True)

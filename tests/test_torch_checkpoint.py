@@ -1,7 +1,11 @@
-"""The port's checkpoints, run directories and metrics on CPU, and the apps
-that need them: both train apps save and resume, the weight handover
-from a pretraining checkpoint, the inference apps load a checkpoint, and
-eval_sintel against the JAX package's.
+"""The port's checkpoints, run directories and metrics on CPU: the
+checkpoint manager against Orbax's save rules, the round trip, and the
+run directory and metric writer. The apps that need them are in
+tests/test_torch_checkpoint_train_apps.py (both train apps save and
+resume, the weight handover from a pretraining checkpoint) and
+tests/test_torch_checkpoint_apps.py (the inference apps load a
+checkpoint, eval_sintel against the JAX package's): three files, so that
+the test workers run them side by side.
 
 Where JAX has the same rule (Orbax's save at an existing step, restore
 without a checkpoint, the train app's step and label arithmetic after a
@@ -10,9 +14,7 @@ uninterrupted one bit for bit (the same process, the same CPU kernels).
 """
 
 import json
-import shutil
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
@@ -22,14 +24,8 @@ import torch.nn as nn
 
 from qpwcnet_tpu.train.checkpoint import CheckpointManager as JCheckpoints
 from qpwcnet_tpu.train.train_state import TrainState
-from qpwcnet_torch.apps import (
-    eval_sintel,
-    infer,
-    interp_infer,
-    pretrain_interp,
-    train_flow,
-)
-from qpwcnet_torch.models import build_flow_net, load_flax_variables
+from qpwcnet_torch.apps import train_flow
+from qpwcnet_torch.models import build_flow_net
 from qpwcnet_torch.train import (
     CheckpointManager,
     MetricWriter,
@@ -39,6 +35,7 @@ from qpwcnet_torch.train import (
 )
 from qpwcnet_torch.utils.config import parse_config
 from qpwcnet_torch.utils.runs import setup_run_dir, snapshot_config
+from tests.test_torch_model import one_torch_thread  # noqa: F401
 
 TRAIN_ARGS = ["--device", "cpu", "--curriculum", "", "--batch-size", "2",
               "--height", "32", "--width", "64", "--log-every", "1",
@@ -247,265 +244,3 @@ def test_metric_writer_jsonl(tmp_path):
     assert recs[0]["loss"] == 0.5 and recs[0]["epe"] == 2.0
     assert set(recs[1]) == {"step", "time", "loss"}
     assert recs[0]["time"] <= recs[1]["time"]
-
-
-# ------------------------------------------------------------ train apps
-
-def test_train_flow_resume_replays_the_uninterrupted_run(tmp_path):
-    """4 steps, against 2 steps and a resume to 4 (--curriculum ''): the
-    final checkpoints are bit-equal. Each run's final save at the
-    periodic step is a no-op, as Orbax's, so both hold the periodic,
-    unrecalibrated state; the metrics log holds every step."""
-    runs = tmp_path / "runs"
-    args = TRAIN_ARGS + ["--run-root", str(runs)]
-    train_flow.main(args + ["--steps", "4"])
-    train_flow.main(args + ["--steps", "2"])
-    train_flow.main(args + ["--steps", "4", "--load-ckpt",
-                            str(runs / "001" / "ckpt")])
-    assert CheckpointManager(runs / "000" / "ckpt").all_steps() == [2, 4]
-    assert CheckpointManager(runs / "001" / "ckpt").all_steps() == [2]
-    assert CheckpointManager(runs / "002" / "ckpt").all_steps() == [4]
-    _assert_states_equal(_state(runs / "000" / "ckpt", 4),
-                         _state(runs / "002" / "ckpt", 4))
-    recs = [json.loads(line) for line in (runs / "002" / "log"
-                                          / "metrics.jsonl").open()]
-    assert [r["step"] for r in recs] == [3, 4]
-    assert {"loss", "epe", "epe_eval", "epe_zero",
-            "images_per_sec"} <= set(recs[0])
-    assert json.loads((runs / "002" / "config.json").read_text())[
-        "load_ckpt"] == str(runs / "001" / "ckpt")
-
-
-def test_train_flow_curriculum_step_and_labels(tmp_path, capsys):
-    """The JAX app reads its step before the curriculum
-    (qpwcnet_tpu/apps/train_flow.py:462), the curriculum's steps
-    increment the stored step (train/train_state.py:50), periodic saves
-    are labelled by the main loop's index from that step (:386-388) and
-    the final save by the stored step (:405). So with 3 curriculum steps
-    and --steps 2 --ckpt-every 2: labels 2 and 5, both storing step 5
-    (label 5 after the recalibration). A resume from label 2 starts at
-    the stored step 5, not at 2 (:459-467): with --steps 8 it runs steps
-    5, 6, 7 on batches 5, 6, 7, saves labels 6 and 8, and its final
-    save at 8 is a no-op."""
-    runs = tmp_path / "runs"
-    args = ["--device", "cpu", "--curriculum", "0,3", "--batch-size", "2",
-            "--height", "64", "--width", "128", "--log-every", "1",
-            "--recalibrate-final", "1", "--ckpt-every", "2", "--run-root",
-            str(runs)]
-    train_flow.main(args + ["--steps", "2"])
-    err = capsys.readouterr().err
-    assert "skip 1/4 stage" in err and "[curriculum 1/2] step 3:" in err
-    ckpt = runs / "000" / "ckpt"
-    assert CheckpointManager(ckpt).all_steps() == [2, 5]
-    assert _state(ckpt, 2)["step"] == _state(ckpt, 5)["step"] == 5
-    only2 = tmp_path / "only2"
-    only2.mkdir()
-    shutil.copytree(ckpt / "2", only2 / "2")
-    train_flow.main(args + ["--steps", "8", "--load-ckpt", str(only2)])
-    err = capsys.readouterr().err
-    assert "[curriculum" not in err
-    resumed = runs / "001"
-    assert CheckpointManager(resumed / "ckpt").all_steps() == [6, 8]
-    assert _state(resumed / "ckpt", 6)["step"] == 6
-    assert _state(resumed / "ckpt", 8)["step"] == 8
-    recs = [json.loads(line) for line in
-            (resumed / "log" / "metrics.jsonl").open()]
-    assert [r["step"] for r in recs] == [6, 7, 8]
-
-
-def test_train_flow_saves_on_interrupt(tmp_path, monkeypatch):
-    """KeyboardInterrupt in the third step: the two steps taken are
-    saved, after the recalibration."""
-    import qpwcnet_torch.train as train
-
-    make = train.make_flow_train_step
-
-    def interrupted(*a, **kw):
-        step = make(*a, **kw)
-        calls = []
-
-        def wrapped(*args):
-            calls.append(1)
-            if len(calls) == 3:
-                raise KeyboardInterrupt
-            return step(*args)
-        return wrapped
-
-    monkeypatch.setattr(train, "make_flow_train_step", interrupted)
-    train_flow.main(TRAIN_ARGS + ["--steps", "5", "--ckpt-every", "100",
-                                  "--run-root", str(tmp_path)])
-    ckpt = tmp_path / "000" / "ckpt"
-    assert CheckpointManager(ckpt).all_steps() == [2]
-    assert _state(ckpt, 2)["step"] == 2
-
-
-def test_pretrain_resume_replays_the_uninterrupted_run(tmp_path):
-    """The same for pretrain_interp, augmentation on: batches and
-    augmentation draws are indexed by the global step."""
-    runs = tmp_path / "runs"
-    args = PRETRAIN_ARGS + ["--run-root", str(runs)]
-    pretrain_interp.main(args + ["--steps", "4"])
-    pretrain_interp.main(args + ["--steps", "2"])
-    pretrain_interp.main(args + ["--steps", "4", "--load-ckpt",
-                                 str(runs / "001" / "ckpt")])
-    assert CheckpointManager(runs / "001" / "ckpt").all_steps() == [2]
-    _assert_states_equal(_state(runs / "000" / "ckpt", 4),
-                         _state(runs / "002" / "ckpt", 4))
-    recs = [json.loads(line) for line in (runs / "002" / "log"
-                                          / "metrics.jsonl").open()]
-    assert [r["step"] for r in recs] == [3, 4]
-    assert {"loss", "mse_eval", "img_5_loss",
-            "images_per_sec"} <= set(recs[0])
-
-
-def test_transfer_from_interp(tmp_path, capsys):
-    """train_flow --load-ckpt <a pretrain_interp ckpt dir>
-    --transfer-from-interp true: the encoder, decoder and flower are the
-    interpolator's, the BatchNorm statistics the fresh flow model's, the
-    step 0 and no curriculum runs. (--steps 0: the final checkpoint is
-    the state before the first step.)"""
-    pretrain_interp.main(PRETRAIN_ARGS + ["--steps", "2", "--run-root",
-                                          str(tmp_path / "pre")])
-    src = _state(tmp_path / "pre" / "000" / "ckpt", 2)["model"]
-    capsys.readouterr()
-    train_flow.main(["--device", "cpu", "--curriculum", "5", "--steps", "0",
-                     "--height", "64", "--width", "128",
-                     "--recalibrate-final", "0", "--load-ckpt",
-                     str(tmp_path / "pre" / "000" / "ckpt"),
-                     "--transfer-from-interp", "true", "--run-root",
-                     str(tmp_path / "flow")])
-    assert "[curriculum" not in capsys.readouterr().err
-    got = _state(tmp_path / "flow" / "000" / "ckpt", 0)
-    fresh = build_flow_net(0, "cpu", head_scale="unit", residual=True)
-    params = {k for k, _ in fresh.named_parameters()}
-    assert got["step"] == 0
-    for k, v in got["model"].items():
-        if k in params:
-            assert k.split(".")[0] in ("encoder", "decoder", "flower")
-            assert torch.equal(v, src[k]), k
-        else:
-            assert torch.equal(v, fresh.state_dict()[k]), k
-
-
-@pytest.mark.parametrize("app", ["infer", "interp_infer"])
-def test_inference_apps_load_a_checkpoint(tmp_path, app):
-    """infer / interp_infer --load-ckpt: the JAX app's model ('diag'
-    heads, no residual) with the checkpoint's parameters and statistics,
-    from a train_flow (unit heads, residual: the same shapes, another
-    function, as in JAX) or pretrain_interp run."""
-    if app == "infer":
-        train_flow.main(TRAIN_ARGS + ["--steps", "2", "--run-root",
-                                      str(tmp_path / "runs")])
-        mod = infer
-    else:
-        pretrain_interp.main(PRETRAIN_ARGS + ["--steps", "2", "--run-root",
-                                              str(tmp_path / "runs")])
-        mod = interp_infer
-    ckpt = tmp_path / "runs" / "000" / "ckpt"
-    argv = ["--device", "cpu", "--height", "32", "--width", "64", "--n",
-            "1", "--out-dir", str(tmp_path / "out"), "--load-ckpt",
-            str(ckpt)]
-    if app == "interp_infer":
-        argv += ["--data", "synthetic"]
-    model = mod.build_model(parse_config(mod.Settings, argv))
-    mods = list(model.modules())
-    assert {m.head_scale for m in mods if hasattr(m, "head_scale")} == \
-        {"diag"}
-    assert {m.residual for m in mods if hasattr(m, "residual")} == {False}
-    want = _state(ckpt, 2)["model"]
-    for k, v in model.state_dict().items():
-        assert torch.equal(v, want[k]), k
-    results = mod.main(argv)
-    assert len(results) == 1
-    assert len(list((tmp_path / "out").glob("*.png"))) == (
-        5 if app == "infer" else 7)
-
-
-@pytest.mark.parametrize("app", ["train_flow", "pretrain_interp", "infer",
-                                 "interp_infer"])
-def test_load_ckpt_without_a_checkpoint_starts_fresh(tmp_path, app):
-    """--load-ckpt at a directory that holds no checkpoint: JAX's
-    restore returns its template (train/checkpoint.py:55-60), so the
-    train apps start at step 0 and the inference apps keep the seed-0
-    weights."""
-    empty = tmp_path / "empty"
-    empty.mkdir()
-    if app in ("train_flow", "pretrain_interp"):
-        mod = train_flow if app == "train_flow" else pretrain_interp
-        args = TRAIN_ARGS if app == "train_flow" else PRETRAIN_ARGS
-        mod.main(args + ["--steps", "2", "--load-ckpt", str(empty),
-                         "--run-root", str(tmp_path / "runs")])
-        ckpt = tmp_path / "runs" / "000" / "ckpt"
-        assert CheckpointManager(ckpt).all_steps() == [2]
-        assert _state(ckpt, 2)["step"] == 2
-    else:
-        mod = infer if app == "infer" else interp_infer
-        cfg = parse_config(mod.Settings, ["--device", "cpu",
-                                          "--load-ckpt", str(empty)])
-        seeded = mod.build_model(parse_config(mod.Settings,
-                                              ["--device", "cpu"]))
-        for (k, a), (_, b) in zip(mod.build_model(cfg).state_dict().items(),
-                                  seeded.state_dict().items()):
-            assert torch.equal(a, b), k
-    assert not any(empty.iterdir())
-
-
-# ------------------------------------------------------------ eval_sintel
-
-def _sintel_fixture(root, rng, h=40, w=72):
-    """A Sintel-layout tree of one sequence with 2 frames and 1 flow."""
-    from qpwcnet_torch.data.flo_format import write_flo
-    from qpwcnet_torch.vis import write_png
-
-    img = root / "training" / "final" / "seq"
-    flo = root / "training" / "flow" / "seq"
-    img.mkdir(parents=True)
-    flo.mkdir(parents=True)
-    for i in (1, 2):
-        write_png(img / f"frame_{i:04d}.png",
-                  rng.randint(0, 256, (h, w, 3)).astype(np.uint8))
-    write_flo(flo / "frame_0001.flo",
-              rng.uniform(-3, 3, (h, w, 2)).astype(np.float32))
-
-
-@pytest.mark.parametrize("protocol", ["pad", "resize"])
-def test_eval_sintel_matches_jax(tmp_path, capsys, protocol):
-    """The same seeded variables saved by JAX's CheckpointManager (a
-    create_flow_train_state state) and by the port's after
-    load_flax_variables; both apps with --load-ckpt --recalibrate 1 on a
-    40x72 fixture ('pad' runs at 64x96; 'resize' at 64x96 too): the EPEs
-    agree to a relative 1e-4 (float32)."""
-    from qpwcnet_tpu.apps import eval_sintel as j_eval_sintel
-    from qpwcnet_tpu.models import build_flow_net as j_build_flow_net
-    from qpwcnet_tpu.train import create_flow_train_state
-    from tests.test_torch_model import _seeded
-
-    _sintel_fixture(tmp_path / "sintel", np.random.RandomState(5))
-    model_j, variables = j_build_flow_net(jax.random.key(0))
-    v = _seeded(variables, "diag", seed=3, hw=(64, 96))
-    jm = JCheckpoints(tmp_path / "jax")
-    jm.save(0, create_flow_train_state(model_j, v))
-    jm.wait()
-    jm.close()
-    model = load_flax_variables(build_flow_net(0, "cpu"), v)
-    CheckpointManager(tmp_path / "port").save(0, model,
-                                              plain_optimizer(model, 1e-4))
-    args = ["--data-path", str(tmp_path / "sintel"), "--protocol", protocol,
-            "--height", "64", "--width", "96", "--recalibrate", "1"]
-    capsys.readouterr()
-    j_eval_sintel.main(args + ["--load-ckpt", str(tmp_path / "jax")])
-    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    got = eval_sintel.main(args + ["--load-ckpt", str(tmp_path / "port"),
-                                   "--device", "cpu"])
-    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert line == got
-    assert got["n"] == want["n"] == 1 and got["protocol"] == protocol
-    assert got["metric"] == want["metric"] == "sintel EPE"
-    assert abs(got["value"] - want["value"]) <= 1e-4 * abs(want["value"])
-    # not vacuous: the predicted flows move the EPE off predict-zero's
-    from qpwcnet_torch.data.flo_format import read_flo
-
-    gt = read_flo(tmp_path / "sintel" / "training" / "flow" / "seq"
-                  / "frame_0001.flo")
-    zero = float(np.mean(np.linalg.norm(gt, axis=-1)))
-    assert abs(got["value"] - zero) > 0.05 * zero, (got["value"], zero)

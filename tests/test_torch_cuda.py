@@ -374,15 +374,79 @@ def test_downconv_stage_launches_one_kernel(dev, dtype):
 
 @pytest.mark.cuda
 def test_downconv_stage_raises_for_unbuilt_widths(dev):
+    """Every encoder width is built in both dtypes; other widths, and a
+    Ci above the fused bf16 tile's cap, raise."""
     rng = np.random.RandomState(17)
     kernels.reset_launch_counts()
-    for dtype, cin, cout in ((torch.bfloat16, 64, 128),
-                             (torch.float32, 32, 64),
+    for dtype, cin, cout in ((torch.bfloat16, 64, 48),
+                             (torch.float32, 32, 8),
                              (torch.bfloat16, 20, 32)):
         x = _rand(rng, (1, 8, 16, cin), dev, dtype)
         with pytest.raises(ValueError):
             downconv_stage_cuda(x, _stem_params(rng, dev, cin, cout), dtype)
     assert downconv_stage_cuda.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cout", [
+    ((2, 26, 38, 64), 128),    # encoder stage 3, 64-row GEMM tiles
+    ((2, 14, 22, 128), 256),   # stage 4: two 128-channel N tiles
+    ((3, 18, 30, 64), 128),    # no tile multiple
+    ((2, 14, 22, 20), 128),    # Ci 20: element loads, padded to 32
+    ((12, 64, 128, 64), 128),  # 128-row tiles (they cover the SMs)
+    ((16, 64, 64, 128), 256),
+])
+def test_downconv_stage_kernel_wide(dev, dtype, shape, cout):
+    """The wide stages' implicit GEMM (one launch a conv) against the
+    plain composition."""
+    _check_stem(dev, dtype, shape, cout, seed=18)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 30, 46, 32), (4, 128, 256, 32)])
+def test_downconv_stage_kernel_f32_co64(dev, shape):
+    """float32 at encoder stage 2 (Co 64), the GEMM's CUDA-core body."""
+    _check_stem(dev, torch.float32, shape, 64, seed=19)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_downconv_stage_wide_launches(dev, dtype):
+    """A wide stage is one wrapper launch: the weights' rounding into the
+    GEMM's layout, then one GEMM a conv."""
+    rng = np.random.RandomState(20)
+    x = _rand(rng, (2, 16, 32, 64), dev, dtype, scale=0.5)
+    params = _stem_params(rng, dev, 64, 128)
+    downconv_stage_cuda(x, params, dtype)  # builds the library
+    torch.cuda.synchronize()
+    names = _device_kernels(lambda: downconv_stage_cuda(x, params, dtype))
+    assert len(names) == 4, names
+    assert "prep_w33" in names[0]
+    assert all("conv_gemm" in n for n in names[1:]), names
+    assert downconv_stage_cuda.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(64, 128), (32, 64)])
+def test_downconv_trainable_wide_grads_match_plain_autograd(dev, cin, cout):
+    rng = np.random.RandomState(21)
+    x = _rand(rng, (2, 12, 18, cin), dev, scale=0.5)
+    params = _stem_params(rng, dev, cin, cout)
+    g = _rand(rng, (2, 6, 9, cout), dev)
+    leaves = [t.clone().requires_grad_()
+              for t in [x, *(t for p in params for t in p)] * 2]
+    n = len(leaves) // 2
+    kernels.reset_launch_counts()
+    downconv_stage_trainable(
+        leaves[0], [(leaves[i], leaves[i + 1]) for i in range(1, n, 2)],
+        torch.float32).backward(g)
+    downconv_stage_plain(
+        leaves[n], [(leaves[n + i], leaves[n + i + 1])
+                    for i in range(1, n, 2)], torch.float32).backward(g)
+    assert downconv_stage_cuda.launches == 1
+    for i in range(n):
+        _assert_close(leaves[i].grad, leaves[n + i].grad)
 
 
 @pytest.mark.cuda
@@ -591,6 +655,93 @@ def test_upconv_stage_kernel_bf16_widths(dev, cin, cout):
 ])
 def test_upconv_stage_kernel_grid(dev, dtype, shape, cout):
     _check_upconv(dev, dtype, shape, cout, seed=12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cout", [
+    ((2, 7, 13, 256), 128),    # decoder stage 0, 64-row GEMM tiles
+    ((2, 9, 11, 256), 64),     # stage 1, no tile multiple
+    ((2, 7, 13, 20), 64),      # Ci 20: element loads, padded to 32
+    ((16, 28, 64, 256), 64),   # 128-row tiles (they cover the SMs)
+    ((16, 14, 32, 256), 128),
+])
+def test_upconv_stage_kernel_wide(dev, dtype, shape, cout):
+    """The wide stages' implicit GEMM (one grid z a phase) against the
+    plain composition."""
+    _check_upconv(dev, dtype, shape, cout, seed=22)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_upconv_stage_wide_launches(dev, dtype):
+    """A wide stage: the weight's rounding into the GEMM's layout, then
+    one GEMM for the four phases."""
+    rng = np.random.RandomState(23)
+    x = _rand(rng, (2, 8, 16, 256), dev, dtype)
+    w = _rand(rng, (256, 128, 4, 4), dev, scale=1 / 32)
+    b = _rand(rng, (128,), dev, scale=0.1)
+    upconv_stage_cuda(x, w, b, dtype)
+    torch.cuda.synchronize()
+    names = _device_kernels(lambda: upconv_stage_cuda(x, w, b, dtype))
+    assert len(names) == 2 and "prep_wt" in names[0], names
+    assert "conv_gemm" in names[1], names
+    assert upconv_stage_cuda.launches == 1
+
+
+@pytest.mark.cuda
+def test_upconv_trainable_wide_grads_match_plain_autograd(dev):
+    rng = np.random.RandomState(24)
+    x = _rand(rng, (2, 5, 9, 256), dev)
+    w = _rand(rng, (256, 64, 4, 4), dev, scale=1 / 32)
+    b = _rand(rng, (64,), dev, scale=0.1)
+    g = _rand(rng, (2, 10, 18, 64), dev)
+    leaves = [t.clone().requires_grad_() for t in (x, w, b, x, w, b)]
+    kernels.reset_launch_counts()
+    upconv_stage_trainable(leaves[0], [tuple(leaves[1:3])],
+                           torch.float32).backward(g)
+    upconv_stage_plain(*leaves[3:], torch.float32).backward(g)
+    assert upconv_stage_cuda.launches == 1
+    for i in range(3):
+        _assert_close(leaves[i].grad, leaves[i + 3].grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fully_fused_flow_net_matches_plain(dev, dtype):
+    """stem_stages=5, upconv_stages=4: every encoder and decoder stage
+    through K2 and K5 (5 and 4 launches a forward), against the plain
+    model (float32 within 1e-4 of the flow magnitude, bf16 within 5%).
+    The flow heads are seeded, so that the flows are not 0: of_flow ~
+    N(0, (10 / s)^2), s the level's diagonal (the 'diag' output scale),
+    gives flows of 0.25 px on average and 1.5 px at most."""
+    rng = np.random.RandomState(25)
+    x = _rand(rng, (2, 64, 128, 6), dev, scale=0.3)
+    flows = {}
+    for name, kw in (("fused", dict(stem_stages=5, upconv_stages=4)),
+                     ("plain", dict(cv_impl="plain"))):
+        model = build_flow_net(0, dev, dtype=dtype, **kw)
+        heads = np.random.RandomState(26)
+        with torch.no_grad():
+            for i, up in enumerate([model.flower.flow_0,
+                                    *model.flower.upflows]):
+                s = float(np.hypot(64 >> (5 - i), 128 >> (5 - i)))
+                up.flow.of_flow.weight.copy_(_rand(
+                    heads, up.flow.of_flow.weight.shape, dev, scale=10 / s))
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            flows[name] = model(x)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        if name == "fused":
+            assert (counts["downconv_stage_cuda"],
+                    counts["upconv_stage_cuda"]) == (5, 4), counts
+    got, want = flows["fused"], flows["plain"]
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert float(want.abs().mean()) > 0.1
+    rel = 1e-4 if dtype == torch.float32 else 5e-2
+    err = float((got - want).abs().max())
+    assert err <= rel * max(1.0, float(want.abs().max())), err
 
 
 @pytest.mark.cuda

@@ -67,7 +67,10 @@ from qpwcnet_tpu.train.losses import (
 from qpwcnet_tpu.train.train_state import default_optimizer as j_default_opt
 from tests.conftest import TEST_HW
 from tests.test_models import _expected_interp_params
-from tests.test_torch_model import _seeded
+from tests.test_torch_model import (
+    _seeded,
+    one_torch_thread,  # noqa: F401
+)
 from tests.test_torch_train import (
     LR,
     _check_params,

@@ -29,6 +29,19 @@ HW = (64, 128)
 LEVELS = ["flow_0"] + [f"upflow_{i}" for i in range(4)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """PyTorch's CPU ops on one thread for the module's tests, restored
+    after. The test workers share the machine's cores, and each torch
+    op's thread pool waits on its slowest thread: with one pool a core per
+    worker, the small ops of these models ran ten to fifty times slower
+    than alone. A module that imports this fixture gets it too."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _seeded(variables, head_scale, seed=0, k=1.5, hw=HW):
     """A numpy copy of a Flax flow-net tree with non-zero flow heads and
     BatchNorm state. of_flow ~ N(0, (k / s)^2) with s = sqrt(h² + w²) of

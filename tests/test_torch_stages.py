@@ -18,7 +18,12 @@ from qpwcnet_torch.models import build_flow_net, load_flax_variables
 from qpwcnet_torch.models.pwcnet import Encoder, init_weights
 from qpwcnet_torch.ops.cuda import stem_kernel, upconv_kernel
 from tests.conftest import TEST_HW
-from tests.test_torch_model import _err, _inputs, _seeded
+from tests.test_torch_model import (
+    _err,
+    _inputs,
+    _seeded,
+    one_torch_thread,  # noqa: F401
+)
 
 
 def _counting(module, name, calls):

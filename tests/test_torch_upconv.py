@@ -21,6 +21,7 @@ from qpwcnet_torch.models.pwcnet import Decoder
 from qpwcnet_torch.ops.cuda import upconv_kernel
 from qpwcnet_torch.ops.cuda.upconv_kernel import (
     UPCONV_CHANNELS,
+    UPCONV_GEMM_CHANNELS,
     upconv_stage_cuda,
     upconv_stage_plain,
     upconv_stage_trainable,
@@ -147,15 +148,17 @@ def test_decoder_upconv_stages_match_jax_reference(flow_setup):
                                    atol=1e-5)
 
 
-@pytest.mark.parametrize("n,ok", [(2, True), (3, False)])
-def test_decoder_upconv_stages_need_kernel_widths(n, ok):
-    """Any stage count builds, as in JAX, and runs on CPU tensors; only
-    the 32- and 16-channel stages (the last two) have a kernel (``ok``:
-    every fused stage has one)."""
+@pytest.mark.parametrize("n,narrow", [(2, True), (3, False)])
+def test_decoder_upconv_stages_need_kernel_widths(n, narrow):
+    """Any stage count builds, as in JAX, and runs on CPU tensors; every
+    fused stage's width has a kernel. The 32- and 16-channel stages (the
+    last two) run the resident-weight body (``narrow``), the 64- and
+    128-channel ones the implicit GEMM."""
     dec = Decoder(upconv_stages=n)
     assert dec.upconv_stages == n
     widths = [st.params()[0][0].shape[1] for st in dec.stages[4 - n:]]
-    assert all(w in UPCONV_CHANNELS for w in widths) == ok
+    assert all(w in UPCONV_CHANNELS for w in widths)
+    assert all(w not in UPCONV_GEMM_CHANNELS for w in widths) == narrow
     encs = [torch.randn(1, c, 32 >> i, 64 >> i).contiguous(
         memory_format=CHANNELS_LAST)
         for i, c in enumerate((3, 16, 32, 64, 128, 256))]
