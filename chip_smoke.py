@@ -32,6 +32,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      flow headline and of batch 1 (stages 0-1 also of the flow train
      step), and at odd shapes, float32 and bf16; the trainable K5's
      gradients against autograd of the plain version.
+  3d. the haloed modes of K1, K4a and K4b (nxt and dnxt of H + 8 rows:
+     the spatial path's) against their haloed plain versions in float32
+     and bf16 at the spatial forward's five levels (448x1024 b8 in 2 H
+     shards, folded into batch 16), the train step's (256x512 b16 in 4,
+     batch 64) and one odd shape; and at the headline's finest level
+     split in 2 and 4 shards, the haloed K1 of every shard concatenated
+     against the unhaloed K1 of the whole map (bit for bit), the shards'
+     K4a outputs concatenated and their K4b outputs with the halo rows
+     added back to their owners against the whole map's K4a / K4b.
   4. slice: PWCFlowNet at 448x1024 b8 with seeded, non-zero flow heads,
      exact and 'fast', against the plain model (stem_stages=0,
      cv_impl='plain') in bf16 and float32, with each kernel's launch
@@ -85,6 +94,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      steps, and the library entry points (2 steps and an eval forward) as
      a main path. Four main paths: fused_infer_exact, fused_infer_fast,
      fused_train and fused_interp.
+  4f. the spatial (H-sharded) path at full width on the local transport
+     (the H shards folded into the batch, one process, one card), under
+     cudnn.deterministic, against the unsharded model (stem_stages=0,
+     cv_impl='auto'): the forward at 448x1024 b8 in 2 shards (warp halo
+     16; K1's haloed mode at all five levels), bf16 and float32, and the
+     train step at 256x512 b16 in 4 shards (warp halo 8; the coarsest
+     level falls back to the whole level's kernels), its loss, every
+     gradient (phase 4b's rules) and the BatchNorm running statistics;
+     the share of pixels where the window warp clamps (JAX's documented
+     approximation), and the launches of K1, K4a and K4b in their haloed
+     and unhaloed modes. Two main paths: spatial_infer
+     (make_spatial_forward) and spatial_train (make_spatial_train_step).
   5. times: CUDA events after warm-up, median of N: each kernel against
      its plain version at the headline shapes (K4a and K4b at the training
      levels, K5 at its six shapes, with its achieved GB/s), beside its
@@ -101,7 +122,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      headline and the training steps); the fully fused configuration's
      in-model effect (stem_stages 2 beside 5, upconv_stages 2 beside 4,
      two rounds of turns, and the card's busy time by torch.profiler: the
-     exact flow forward, the flow train step, the pretraining step).
+     exact flow forward, the flow train step, the pretraining step); the
+     haloed modes one call each (K1 at the spatial forward's five levels,
+     K4a and K4b at the train step's four haloed levels) beside their
+     plain versions and bounds (the halo rows counted); the sharded
+     forward and train step beside the unsharded ones.
 
 The line before the card line is a JSON object with one entry per kernel:
 its launches summed over the main paths' runs (each run with the counts
@@ -109,7 +134,8 @@ set to 0 just before it and read just after; each path's count is also
 listed), its largest error in phase 3/3c, and its kernel, plain, bound
 and library times summed over the shapes timed for it (K2: the
 headline's five encoder stages; K5: the interpolator's four training
-stages); the last line is {"ok": true, "device": {...}}.
+stages; the haloed modes: the spatial paths' levels, phase 3d's error);
+the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -168,6 +194,16 @@ KERNELS = {
     "upconv_stage": dict(
         source="qpwcnet_torch/csrc/upconv.cu",
         replaces="qpwcnet_tpu/ops/pallas/upconv_kernel.py:61"),
+    # the haloed modes of K1, K4a and K4b (the spatial path's)
+    "cost_volume_haloed": dict(
+        source="qpwcnet_torch/csrc/cost_volume.cu",
+        replaces="qpwcnet_tpu/ops/pallas/cost_volume_kernel.py:504"),
+    "cost_volume_bwd_prv_haloed": dict(
+        source="qpwcnet_torch/csrc/cost_volume_bwd.cu",
+        replaces="qpwcnet_tpu/ops/pallas/cost_volume_kernel.py:354"),
+    "cost_volume_bwd_nxt_haloed": dict(
+        source="qpwcnet_torch/csrc/cost_volume_bwd.cu",
+        replaces="qpwcnet_tpu/ops/pallas/cost_volume_kernel.py:392"),
 }
 # The interpolator slice: the JAX bench's pretraining configuration
 # (bench.py:205-223), and the kernel model's options on it
@@ -216,6 +252,11 @@ GEMM_MODES = {"0": "conv s2", "1": "conv s1", "2": "up"}
 # The fully fused configuration: every encoder stage through K2, every
 # decoder stage through K5
 FUSED_KW = dict(stem_stages=5, upconv_stages=4)
+# The spatial (H-sharded) path on the local transport: the headline
+# forward split in 2 H shards with the default 16-row warp halo, the
+# train step split in 4 with an 8-row halo (tests/test_spatial.py's)
+SPATIAL_N_FWD, SPATIAL_HALO_FWD = 2, 16
+SPATIAL_N_TRAIN, SPATIAL_HALO_TRAIN = 4, 8
 # The H100 SXM's published peaks (NVIDIA data sheet, 700 W): device
 # memory bytes/s and dense bf16 tensor-core operations/s
 PEAK_BYTES = 3.35e12
@@ -334,11 +375,16 @@ def seed_flow_heads(model, seed: int, hw, k: float = 1.5) -> None:
             head.norm.running_var.copy_(t(rng.uniform(0.5, 1.5, 16)))
 
 
-def counts_of(K1=0, K2=0, K3=0, K4a=0, K4b=0, K5=0) -> dict:
-    """Launch counts by wrapper name (qpwcnet_torch.ops.cuda)."""
+def counts_of(K1=0, K2=0, K3=0, K4a=0, K4b=0, K5=0, K1h=0, K4ah=0,
+              K4bh=0) -> dict:
+    """Launch counts by wrapper name (qpwcnet_torch.ops.cuda); K1h,
+    K4ah, K4bh: the haloed modes."""
     return {"cost_volume_cuda": K1, "downconv_stage_cuda": K2,
             "warp_cost_volume_cuda": K3, "cost_volume_bwd_prv_cuda": K4a,
-            "cost_volume_bwd_nxt_cuda": K4b, "upconv_stage_cuda": K5}
+            "cost_volume_bwd_nxt_cuda": K4b, "upconv_stage_cuda": K5,
+            "cost_volume_haloed_cuda": K1h,
+            "cost_volume_bwd_prv_haloed_cuda": K4ah,
+            "cost_volume_bwd_nxt_haloed_cuda": K4bh}
 
 
 def build(dtype, dev, hw=(H, W), k=1.5, **kw):
@@ -704,6 +750,119 @@ def phase_kernels_upconv(dev, errs):
                 "function")
     del x, w, b, gout, grads, leaves, y
     torch.cuda.empty_cache()
+
+
+def halo_shards(x, n, r=4):
+    """The n H shards of x (B, H, W, C), each with the r rows of its
+    neighbours above and below (zeros at the global ends): a list of
+    (B, H/n + 2r, W, C) tensors, as the spatial path's exchange builds
+    them."""
+    import torch.nn.functional as F
+
+    hl = x.shape[1] // n
+    pad = F.pad(x, (0, 0, 0, 0, r, r))
+    return [pad[:, s * hl:s * hl + hl + 2 * r].contiguous()
+            for s in range(n)]
+
+
+def spatial_levels():
+    """(B, h, w, C) of the haloed kernels' calls on the spatial paths: the
+    headline's five levels split in SPATIAL_N_FWD H shards folded into the
+    batch, and the train step's split in SPATIAL_N_TRAIN."""
+    return ([(SPATIAL_N_FWD * B, h // SPATIAL_N_FWD, w, c)
+             for h, w, c in CV_LEVELS],
+            [(SPATIAL_N_TRAIN * TRAIN_B, h // SPATIAL_N_TRAIN, w, c)
+             for h, w, c in TRAIN_LEVELS])
+
+
+def phase_kernels_haloed(dev, errs):
+    """Phase 3d: the haloed modes of K1, K4a and K4b against their plain
+    versions, and the shards of a map against the whole map."""
+    import torch
+
+    from qpwcnet_torch.ops.cost_volume import (
+        cost_volume_bwd_nxt_plain, cost_volume_bwd_prv_plain,
+        cost_volume_plain_haloed)
+    from qpwcnet_torch.ops.cuda.cost_volume_kernel import (
+        cost_volume_bwd_nxt_cuda, cost_volume_bwd_nxt_haloed_cuda,
+        cost_volume_bwd_prv_cuda, cost_volume_bwd_prv_haloed_cuda,
+        cost_volume_cuda, cost_volume_haloed_cuda)
+
+    log("== phase 3d: the haloed kernel modes (nxt of H + 8 rows; dnxt of "
+        "H + 8 rows) against their plain versions, phase 3's tolerances, "
+        f"at the spatial forward's levels ({H}x{W} b{B} in "
+        f"{SPATIAL_N_FWD} shards), the train step's ({TRAIN_H}x{TRAIN_W} "
+        f"b{TRAIN_B} in {SPATIAL_N_TRAIN}) and one odd shape")
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    fwd_levels, train_levels = spatial_levels()
+    for dtype in (torch.float32, torch.bfloat16):
+        rel = REL_F32 if dtype == torch.float32 else REL_BF16
+        dn = str(dtype).split(".")[-1]
+        for b, h, w, c in fwd_levels + train_levels + [(3, 13, 37, 24)]:
+            prv = rand((b, h, w, c), dtype)
+            nxt_h = rand((b, h + 8, w, c), dtype)
+            dacc = rand((b, h, w, 81), dtype)
+            compare(f"K1 haloed {dn} ({b},{h},{w},{c})",
+                    cost_volume_haloed_cuda(prv, nxt_h),
+                    cost_volume_plain_haloed(prv, nxt_h), rel, errs,
+                    "cost_volume_haloed")
+            compare(f"K4a haloed {dn} ({b},{h},{w},{c})",
+                    cost_volume_bwd_prv_haloed_cuda(dacc, nxt_h),
+                    cost_volume_bwd_prv_plain(dacc, nxt_h, True), rel, errs,
+                    "cost_volume_bwd_prv_haloed")
+            compare(f"K4b haloed {dn} ({b},{h},{w},{c})",
+                    cost_volume_bwd_nxt_haloed_cuda(dacc, prv),
+                    cost_volume_bwd_nxt_plain(dacc, prv, True), rel, errs,
+                    "cost_volume_bwd_nxt_haloed")
+            del prv, nxt_h, dacc
+        torch.cuda.empty_cache()
+
+        # Shard equivalence at the headline's finest level: each shard's
+        # haloed K1, concatenated, is the unhaloed K1 of the whole map bit
+        # for bit (each pixel has the same products in the same order);
+        # the shards' K4a outputs, concatenated, and their K4b outputs
+        # with the halo rows added back to their owners (float32 adds, as
+        # the exchange's backward sums them) are the whole map's.
+        b, (h, w, c), r = B, CV_LEVELS[-1], 4
+        prv, nxt = rand((b, h, w, c), dtype), rand((b, h, w, c), dtype)
+        dacc = rand((b, h, w, 81), dtype)
+        whole = {"K1": cost_volume_cuda(prv, nxt),
+                 "K4a": cost_volume_bwd_prv_cuda(dacc, nxt),
+                 "K4b": cost_volume_bwd_nxt_cuda(dacc, prv)}
+        for n in (2, 4):
+            hl = h // n
+            rows = [slice(s * hl, (s + 1) * hl) for s in range(n)]
+            halos = halo_shards(nxt, n, r)
+            k1 = torch.cat([cost_volume_haloed_cuda(
+                prv[:, rs].contiguous(), nh) for rs, nh in zip(rows, halos)],
+                1)
+            torch.cuda.synchronize()
+            same = torch.equal(k1, whole["K1"])
+            log(f"  K1 {dn}: {n} haloed shards concatenated "
+                f"{'==' if same else '!='} the whole map's K1, bit for bit "
+                f"(max_abs_err {max_err(k1, whole['K1']):.3e})")
+            check(same, f"K1 {dn}: {n} shards differ from the whole map")
+            k4a = torch.cat([cost_volume_bwd_prv_haloed_cuda(
+                dacc[:, rs].contiguous(), nh) for rs, nh in zip(rows, halos)],
+                1)
+            compare(f"K4a {dn}: {n} haloed shards vs the whole map", k4a,
+                    whole["K4a"], rel, {}, "shards")
+            k4b = torch.zeros((b, h + 2 * r, w, c), device=dev)
+            for s, rs in enumerate(rows):
+                k4b[:, s * hl:s * hl + hl + 2 * r] += \
+                    cost_volume_bwd_nxt_haloed_cuda(
+                        dacc[:, rs].contiguous(),
+                        prv[:, rs].contiguous()).float()
+            compare(f"K4b {dn}: {n} haloed shards, halo rows added back, vs "
+                    "the whole map", k4b[:, r:-r], whole["K4b"], rel, {},
+                    "shards")
+            del halos, k1, k4a, k4b
+        del prv, nxt, dacc, whole
+        torch.cuda.empty_cache()
 
 
 def phase_slice(dev):
@@ -1416,6 +1575,164 @@ def phase_fused(dev, x, batch, ibatch):
     return paths
 
 
+def warp_clamp_share(flows, halo, n, h) -> str:
+    """The share of the pixels whose flow into a windowed warp (a level
+    whose shards hold at least ``halo`` rows) has |flow_y| > halo: where
+    the spatial path's window clamps, JAX's documented approximation.
+    ``flows``: the unsharded model's multiscale flows, coarse to fine;
+    UpFlow i reads 2x flows[i] upsampled."""
+    parts = []
+    for i, f in enumerate(flows[:-2]):
+        rows = 2 * f.shape[1]
+        if rows // n < halo:
+            continue
+        share = float((2.0 * f[..., 1].abs() > halo).float().mean())
+        parts.append(f"{rows}x{2 * f.shape[2]} {share:.4%}")
+    return (", ".join(parts) or "no windowed level") + \
+        f" (rows {h}, {n} shards, halo {halo})"
+
+
+def spatial_counts(h, n, step=False) -> dict:
+    """The launches of one sharded forward (and with ``step`` its
+    backward) at input height h in n shards: the levels with 4 rows a
+    shard or more (r = 4) take the haloed modes, the coarser ones fall
+    back to the whole level's unhaloed kernels."""
+    whole = sum((h >> (5 - i)) // n < 4 for i in range(5))
+    bwd = dict(K4a=whole, K4b=whole, K4ah=5 - whole, K4bh=5 - whole)
+    return counts_of(K1=whole, K1h=5 - whole, **(bwd if step else {}))
+
+
+def phase_spatial(dev, x, batch):
+    """Phase 4f: the spatial (H-sharded) path at full width on the local
+    transport (the shards folded into the batch), against the unsharded
+    model: the forward (n = 2, warp halo 16) and the train step (n = 4,
+    warp halo 8), each through the library's entry points as a main
+    path."""
+    import numpy as np
+    import torch
+
+    from qpwcnet_torch.ops import cuda as kernels
+    from qpwcnet_torch.parallel import (
+        SpatialConfig, make_mesh, make_spatial_forward,
+        make_spatial_train_step, shard_batch_spatial, unshard_batch_spatial)
+    from qpwcnet_torch.train import make_flow_train_step
+
+    t_phase = time.perf_counter()
+    log(f"== phase 4f: the spatial (H-sharded) path, local transport: the "
+        f"forward at {H}x{W} b{B} in {SPATIAL_N_FWD} shards (warp halo "
+        f"{SPATIAL_HALO_FWD}), the train step at {TRAIN_H}x{TRAIN_W} "
+        f"b{TRAIN_B} in {SPATIAL_N_TRAIN} (halo {SPATIAL_HALO_TRAIN}), "
+        "against the unsharded model (stem_stages=0, cv_impl='auto')")
+    bf16, f32 = torch.bfloat16, torch.float32
+    paths = {}
+
+    n, halo = SPATIAL_N_FWD, SPATIAL_HALO_FWD
+    mesh = make_mesh(n_data=1, n_model=n)
+    fwd = make_spatial_forward(lambda m, ims: m(ims), mesh)
+    xs = shard_batch_spatial(x, mesh)
+    with torch.inference_mode():
+        for dtype in (bf16, f32):
+            dn = str(dtype).split(".")[-1]
+            ref = build(dtype, dev, cv_impl="auto", stem_stages=0)
+            flows = ref(x, multiscale=True)
+            want = flows[-1]
+            sp = build(dtype, dev, cv_impl="auto",
+                       spatial=SpatialConfig(mesh, warp_halo=halo))
+            kernels.reset_launch_counts()
+            out = fwd(sp, xs)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            got = unshard_batch_spatial(out, mesh)
+            log(f"  sharded forward {dn}: launches {counts}; the window "
+                f"warp clamps at {warp_clamp_share(flows, halo, n, H)}")
+            check(tuple(out.shape) == (n * B, H // n, W, 2),
+                  f"sharded forward {dn}: output {tuple(out.shape)}")
+            check(counts == spatial_counts(H, n),
+                  f"sharded forward {dn}: launches {counts}")
+            # JAX's own bound for this comparison is 2e-3 (float32,
+            # tests/test_spatial.py); bf16 keeps phase 4's model bound
+            # (5% max, 0.5% mean of the magnitude), since a one-ulp flip
+            # early moves the later warps
+            scale = max(1.0, float(want.abs().max()))
+            err, mean = max_err(got, want), float((got - want).abs().mean())
+            rel = 2e-3 if dtype == f32 else 5e-2
+            log(f"  sharded vs unsharded forward {dn}: max_abs_err="
+                f"{err:.3e} mean_abs_err={mean:.3e} tol={rel * scale:.3e} "
+                f"mean|flow|={float(want.abs().mean()):.3f} px")
+            check(bool(torch.isfinite(got).all()), f"sharded {dn}: "
+                  "non-finite flow")
+            check(err <= rel * scale, f"sharded forward {dn}: {err}")
+            if dtype == bf16:
+                check(mean <= 5e-3 * scale, f"sharded forward {dn}: mean "
+                      f"{mean}")
+                paths["spatial_infer"] = counts
+            del ref, sp, flows, out, got, want
+            torch.cuda.empty_cache()
+
+    n, halo = SPATIAL_N_TRAIN, SPATIAL_HALO_TRAIN
+    mesh = make_mesh(n_data=1, n_model=n)
+    sbatch = {k: shard_batch_spatial(v, mesh) for k, v in batch.items()}
+
+    def spatial_step():
+        return make_spatial_train_step(make_flow_train_step(), mesh)
+
+    # the coarsest level (8 rows, 2 a shard) falls back to the whole
+    # level's unhaloed kernels
+    per_step = spatial_counts(TRAIN_H, n, step=True)
+    ref32 = None
+    for dtype in (f32, bf16):
+        dn = str(dtype).split(".")[-1]
+        ref = build_train(dtype, dev, cv_impl="auto", stem_stages=0)
+        with torch.no_grad():
+            flows = ref(batch["ims"], multiscale=True)
+        log(f"  train step {dn}: the window warp clamps at "
+            f"{warp_clamp_share(flows, halo, n, TRAIN_H)}")
+        del flows
+        ref = build_train(dtype, dev, cv_impl="auto", stem_stages=0)
+        loss_u, g_u, counts_u = grad_step(ref, batch)
+        sp = build_train(dtype, dev, cv_impl="auto",
+                         spatial=SpatialConfig(mesh, warp_halo=halo))
+        loss_s, g_s, counts_s = grad_step(sp, sbatch, spatial_step)
+        log(f"  sharded train step {dn}: loss {loss_s:.6f} (unsharded "
+            f"{loss_u:.6f}), launches {counts_s}")
+        check(np.isfinite(loss_s), f"sharded step {dn}: loss {loss_s}")
+        check(counts_u == counts_of(K1=5, K4a=5, K4b=5),
+              f"unsharded step {dn}: launches {counts_u}")
+        check(counts_s == per_step, f"sharded step {dn}: launches "
+              f"{counts_s}, expected {per_step}")
+        # the loss: float32 to 1e-5 (tests/test_spatial.py's); bf16 to
+        # 5e-3, phase 4's mean bound on the flows it is a mean of
+        rel = 1e-5 if dtype == f32 else 5e-3
+        check(abs(loss_s - loss_u) <= rel * max(1.0, abs(loss_u)),
+              f"sharded step {dn}: loss {loss_s} vs {loss_u}")
+        compare_grads(f"sharded vs unsharded step grads {dn}", g_s, g_u,
+                      ref32)
+        # BatchNorm running statistics after the step (from every shard's
+        # batch statistics): float32 to 1e-5 (JAX's), bf16 to 1e-2 of the
+        # magnitude (statistics of bf16 features)
+        bn_rel = 1e-5 if dtype == f32 else 1e-2
+        worst = 0.0
+        for (name, a), (_, b) in zip(
+                ((k, v) for k, v in sp.state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))),
+                ((k, v) for k, v in ref.state_dict().items()
+                 if k.endswith(("running_mean", "running_var")))):
+            e = max_err(a, b) / max(1.0, float(b.abs().max()))
+            worst = max(worst, e)
+            check(e <= bn_rel, f"sharded step {dn}: {name} {e:.3e}")
+        log(f"  sharded step {dn}: BatchNorm running statistics, worst "
+            f"relative error {worst:.3e} (limit {bn_rel:g})")
+        if dtype == f32:
+            ref32 = g_u
+        else:
+            paths["spatial_train"] = counts_s
+        del ref, sp, g_u, g_s
+        torch.cuda.empty_cache()
+    del ref32
+    log(f"  phase 4f wall time {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def state_diff(a, b) -> list:
     """The leaves in which two checkpoints (torch.load of state.pt) or
     two (model, chain) pairs' states differ: the step, every state_dict
@@ -1737,6 +2054,16 @@ def bound_cv(b, h, w, c, extra_ops=0, extra_bytes=0):
                  2 * 81 * c * px + extra_ops)
 
 
+def bound_cv_haloed(b, h, w, c):
+    """The haloed modes at one shard level, bf16: the (b, h, w, c) map,
+    the haloed (b, h + 8, w, c) map and the (b, h, w, 81) map moved once
+    (K1: prv, nxt_h, out; K4a: dacc, nxt_h, dprv; K4b: dacc, prv, dnxt_h);
+    81·c multiply-adds a pixel."""
+    px = b * h * w
+    return bound(2 * (px * c + b * (h + 8) * w * c + 81 * px),
+                 2 * 81 * c * px)
+
+
 def stem_bytes(b, h, w, cin, cout):
     """K2's bytes moved once: the bf16 input and half-size output, the
     float32 weights and biases."""
@@ -1804,10 +2131,11 @@ def phase_times(dev, x, batch, ibatch):
     from qpwcnet_torch.layout import nchw
     from qpwcnet_torch.ops.cost_volume import (
         cost_volume_bwd_nxt_plain, cost_volume_bwd_prv_plain,
-        cost_volume_plain)
+        cost_volume_plain, cost_volume_plain_haloed)
     from qpwcnet_torch.ops.cuda.cost_volume_kernel import (
-        cost_volume_bwd_nxt_cuda, cost_volume_bwd_prv_cuda,
-        cost_volume_cuda)
+        cost_volume_bwd_nxt_cuda, cost_volume_bwd_nxt_haloed_cuda,
+        cost_volume_bwd_prv_cuda, cost_volume_bwd_prv_haloed_cuda,
+        cost_volume_cuda, cost_volume_haloed_cuda)
     from qpwcnet_torch.ops.cuda.stem_kernel import (
         downconv_stage_cuda, downconv_stage_plain)
     from qpwcnet_torch.ops.cuda.upconv_kernel import (
@@ -1961,6 +2289,42 @@ def phase_times(dev, x, batch, ibatch):
                 f"chained {chained:.4f} ms, device {device:.4f} ms, bound "
                 f"{r['bound_ms']:.4f} ms")
         del dacc, src
+        # The haloed modes, one call each (the kernels line), the halo
+        # rows in the bound: K1 at the spatial forward's five levels, K4a
+        # and K4b at the train step's levels that launch them (4 rows a
+        # shard or more; the coarsest falls back to the whole level)
+        fwd_levels, train_levels = spatial_levels()
+        for b, h, w, c in fwd_levels:
+            prv, nxt_h = rand((b, h, w, c)), rand((b, h + 8, w, c))
+            bnd = bound_cv_haloed(b, h, w, c)
+            k, p, _ = ab(f"K1 haloed ({b},{h},{w},{c}) nxt +8 rows",
+                         lambda: cost_volume_haloed_cuda(prv, nxt_h),
+                         lambda: cost_volume_plain_haloed(prv, nxt_h), bnd)
+            totals.add("cost_volume_haloed", k, p, bnd)
+        for name, cat, kern, plain in (
+                ("cost_volume_bwd_prv_haloed", "K4a haloed",
+                 cost_volume_bwd_prv_haloed_cuda,
+                 lambda d, m: cost_volume_bwd_prv_plain(d, m, True)),
+                ("cost_volume_bwd_nxt_haloed", "K4b haloed",
+                 cost_volume_bwd_nxt_haloed_cuda,
+                 lambda d, m: cost_volume_bwd_nxt_plain(d, m, True))):
+            for b, h, w, c in train_levels:
+                if h < 4:
+                    continue
+                rows = h + 8 if name.endswith("prv_haloed") else h
+                dacc, src = rand((b, h, w, 81)), rand((b, rows, w, c))
+                bnd = bound_cv_haloed(b, h, w, c)
+                k, p, _ = ab(f"{cat} ({b},{h},{w},{c})",
+                             lambda: kern(dacc, src),
+                             lambda: plain(dacc, src), bnd)
+                totals.add(name, k, p, bnd)
+        for name in KERNELS:
+            if name.endswith("haloed"):
+                r = totals.rows[name]
+                log(f"  {name}: one call {r['ms']:.4f} ms over its levels, "
+                    f"plain {r['plain_ms']:.4f} ms, bound "
+                    f"{r['bound_ms']:.4f} ms")
+        del prv, nxt_h, dacc, src
         # K5 at the six decoder shapes of stages 2-3 and the six of stages
         # 0-1 (the interpolator's and the flow's training steps, the
         # headline); the kernels line sums the interpolator's training
@@ -2044,6 +2408,7 @@ def phase_times(dev, x, batch, ibatch):
                 f"{ms:.3f} ms, {TRAIN_B / ms * 1e3:.2f} img/s")
             del m, opt
             torch.cuda.empty_cache()
+    spatial_times(dev, x, batch)
     istep = make_interp_train_step()
     for mode, kw in (("plain", PLAIN_KW), ("exact", INTERP_KW)):
         m = build_interp(bf16, dev, k=TRAIN_K, **kw)
@@ -2058,6 +2423,56 @@ def phase_times(dev, x, batch, ibatch):
     stem_in_model(dev, x)
     fused_in_model(dev, x, batch, ibatch)
     return totals.rows
+
+
+def spatial_times(dev, x, batch):
+    """The sharded forward (SPATIAL_N_FWD shards) and train step
+    (SPATIAL_N_TRAIN) on the local transport beside the unsharded model
+    (stem_stages=0, cv_impl='auto'), bf16, in turns a, b, b, a; for the
+    record: the shards run in one process on one card."""
+    import torch
+
+    from qpwcnet_torch.parallel import (
+        SpatialConfig, make_mesh, make_spatial_forward,
+        make_spatial_train_step, shard_batch_spatial)
+    from qpwcnet_torch.train import make_flow_train_step, plain_optimizer
+
+    bf16 = torch.bfloat16
+    mesh = make_mesh(n_data=1, n_model=SPATIAL_N_FWD)
+    fwd = make_spatial_forward(lambda m, ims: m(ims), mesh)
+    xs = shard_batch_spatial(x, mesh)
+    ref = build(bf16, dev, cv_impl="auto", stem_stages=0)
+    sp = build(bf16, dev, cv_impl="auto",
+               spatial=SpatialConfig(mesh, warp_halo=SPATIAL_HALO_FWD))
+    with torch.inference_mode():
+        runs = {"unsharded": lambda: time_ms(lambda: ref(x)),
+                "sharded": lambda: time_ms(lambda: fwd(sp, xs))}
+        t = {k: [] for k in runs}
+        for k in ("unsharded", "sharded", "sharded", "unsharded"):
+            t[k].append(runs[k]())
+    log(f"  forward bf16 {H}x{W} b{B}: unsharded {t['unsharded']} ms, "
+        f"{SPATIAL_N_FWD} shards {t['sharded']} ms")
+    del ref, sp
+    mesh = make_mesh(n_data=1, n_model=SPATIAL_N_TRAIN)
+    sbatch = {k: shard_batch_spatial(v, mesh) for k, v in batch.items()}
+    models = {}
+    for k, spatial in (("unsharded", None), ("sharded", SpatialConfig(
+            mesh, warp_halo=SPATIAL_HALO_TRAIN))):
+        m = build_train(bf16, dev, cv_impl="auto", stem_stages=0,
+                        spatial=spatial)
+        models[k] = (m, plain_optimizer(m, 1e-4))
+    steps = {"unsharded": (make_flow_train_step(0.0), batch),
+             "sharded": (make_spatial_train_step(make_flow_train_step(0.0),
+                                                 mesh), sbatch)}
+    t = {k: [] for k in steps}
+    for k in ("unsharded", "sharded", "sharded", "unsharded"):
+        step, b = steps[k]
+        t[k].append(time_ms(lambda: step(*models[k], b), n=N_STEPS_TIMED,
+                            warmup=2))
+    log(f"  train step bf16 {TRAIN_H}x{TRAIN_W} b{TRAIN_B}: unsharded "
+        f"{t['unsharded']} ms, {SPATIAL_N_TRAIN} shards {t['sharded']} ms")
+    del models
+    torch.cuda.empty_cache()
 
 
 def in_turns(tag, knob, runs, unit, per, rounds=1):
@@ -2239,17 +2654,19 @@ def main() -> int:
     errs = phase_kernels(dev)
     phase_kernels_bwd(dev, errs)
     phase_kernels_upconv(dev, errs)
+    phase_kernels_haloed(dev, errs)
     infer_counts, x = phase_slice(dev)
     with cudnn_deterministic():
         train_counts, batch = phase_train(dev)
         interp_paths, ibatch = phase_interp(dev, x)
         ckpt_paths = phase_ckpt(dev, batch)
         fused_paths = phase_fused(dev, x, batch, ibatch)
+        spatial_paths = phase_spatial(dev, x, batch)
     totals = phase_times(dev, x, batch, ibatch)
     log(f"== all phases passed in {time.perf_counter() - t0:.1f} s")
 
     paths = {"infer_app": infer_counts, "train_app": train_counts,
-             **interp_paths, **ckpt_paths, **fused_paths}
+             **interp_paths, **ckpt_paths, **fused_paths, **spatial_paths}
     entries = []
     for name, meta in KERNELS.items():
         key = f"{name}_cuda"

@@ -7,7 +7,10 @@
 //   di, dj in [-4, 4], k = (di+4)*9 + (dj+4), src zero outside the image,
 //
 // with src = nxt (K1) or src = backward_warp(nxt, clamp(flow, +-ww)) (K3).
-// All tensors are NHWC and contiguous; sums are float32.
+// All tensors are NHWC and contiguous; sums are float32. K1's haloed mode
+// (nh = CV_R) reads nxt as (B, H + 2 nh, W, C), image row y at row y + nh,
+// its H halo supplied by the caller instead of zeros; nh = 0 is the plain
+// mode, and K3 always takes it.
 //
 // One block owns a TY x TX tile of output pixels, one thread per pixel,
 // each with its 81 float accumulators in registers. Per chunk of CC
@@ -47,7 +50,7 @@ template <typename T, bool WARP>
 __global__ void __launch_bounds__(CV_THREADS)
 correlate_kernel(const T* __restrict__ prv, const T* __restrict__ nxt,
                  const float* __restrict__ flow, T* __restrict__ out,
-                 int H, int W, int C, float ww) {
+                 int H, int W, int C, float ww, int nh) {
   __shared__ float win[CV_CC][CV_WY][CV_WXP];
   __shared__ float pv[CV_CC][CV_TY][CV_TX];
   // WARP only: per window position, the clamped corner origin y0*W+x0
@@ -61,9 +64,8 @@ correlate_kernel(const T* __restrict__ prv, const T* __restrict__ nxt,
   const int y0 = blockIdx.y * CV_TY;
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * CV_TX + tx;
-  const size_t plane = (size_t)H * W;
-  const T* nb = nxt + (size_t)b * plane * C;
-  const T* pb = prv + (size_t)b * plane * C;
+  const T* nb = nxt + (size_t)b * (H + 2 * nh) * W * C;
+  const T* pb = prv + (size_t)b * H * W * C;
 
   if (WARP) {
     // ops/warp.py:warp_coords on the flow clamped to +-ww.
@@ -114,8 +116,9 @@ correlate_kernel(const T* __restrict__ prv, const T* __restrict__ nxt,
             v = rnd<T>(top + rnd<T>(rnd<T>(bot - top) * ay));
           }
         } else {
-          const int gy = y0 - CV_R + wy, gx = x0 - CV_R + wx;
-          if (gy >= 0 && gy < H && gx >= 0 && gx < W)
+          // the nxt row of image row y0 - CV_R + wy
+          const int gy = y0 - CV_R + wy + nh, gx = x0 - CV_R + wx;
+          if (gy >= 0 && gy < H + 2 * nh && gx >= 0 && gx < W)
             v = to_f<T>(nb[((size_t)gy * W + gx) * C + c]);
         }
       }
@@ -161,12 +164,14 @@ correlate_kernel(const T* __restrict__ prv, const T* __restrict__ nxt,
 template <typename T, bool WARP>
 cudaError_t launch_correlate(const void* prv, const void* nxt,
                              const void* flow, void* out, int B, int H,
-                             int W, int C, float ww, cudaStream_t stream) {
+                             int W, int C, float ww, int nh,
+                             cudaStream_t stream) {
   const dim3 grid((W + CV_TX - 1) / CV_TX, (H + CV_TY - 1) / CV_TY, B);
   const dim3 block(CV_TX, CV_TY);
   correlate_kernel<T, WARP><<<grid, block, 0, stream>>>(
       static_cast<const T*>(prv), static_cast<const T*>(nxt),
-      static_cast<const float*>(flow), static_cast<T*>(out), H, W, C, ww);
+      static_cast<const float*>(flow), static_cast<T*>(out), H, W, C, ww,
+      nh);
   return cudaGetLastError();
 }
 

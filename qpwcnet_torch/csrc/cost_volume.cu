@@ -7,6 +7,17 @@
 // qpwcnet_tpu/ops/pallas/cost_volume_kernel.py:_cv_kernel (via
 // _cost_volume_pallas_impl).
 //
+// Haloed mode (nxt_halo = 4; _cost_volume_pallas_impl(nxt_h_haloed=True),
+// the spatial H-sharded path's): nxt is (B, H + 8, W, C), its rows
+// [4, H + 4) aligned to prv's and the 4 rows above and below supplied by
+// the caller (exchanged from the neighbouring H shards), so the window
+// row of output row y and displacement di is nxt row y + di + 4 and only
+// the columns are zero-padded. Both bodies take the mode as one row shift
+// of the window's staging (cv_mma.cuh: cm_stage; correlate.cuh); the
+// products, their order and the epilogue are the plain mode's, so a
+// shard's haloed output equals the rows of the unsharded output bit for
+// bit.
+//
 // What bounds it on the H100: bytes. A pixel reads 2·C bf16 values and
 // writes 81 (128 + 162 bytes at C = 32); the work is 81·C multiply-adds,
 // 18 to 80 operations a byte over the model's levels, far under the bf16
@@ -81,7 +92,7 @@ template <int TY, int DG>
 __global__ void __launch_bounds__(CmCfg<TY, DG>::NT, 2)
 cost_volume_mma_kernel(const bf16* __restrict__ prv,
                        const bf16* __restrict__ nxt, bf16* __restrict__ out,
-                       int H, int W, int C, int vec) {
+                       int H, int W, int C, int vec, int nh) {
   using Cfg = CmCfg<TY, DG>;
   extern __shared__ __align__(16) unsigned char cm_smem[];
   bf16* const stages = reinterpret_cast<bf16*>(cm_smem);
@@ -89,9 +100,8 @@ cost_volume_mma_kernel(const bf16* __restrict__ prv,
   const int b = blockIdx.z;
   const int x0 = blockIdx.x * CM_TX, y0 = blockIdx.y * TY;
   const int warp = threadIdx.x >> 5;
-  const size_t plane = (size_t)H * W;
-  const bf16* const pb = prv + (size_t)b * plane * C;
-  const bf16* const nb = nxt + (size_t)b * plane * C;
+  const bf16* const pb = prv + (size_t)b * H * W * C;
+  const bf16* const nb = nxt + (size_t)b * (H + 2 * nh) * W * C;
   const int n_chunks = (C + CM_CC - 1) / CM_CC;
 
   const int ty = warp % TY, di0 = warp / TY * Cfg::DI;
@@ -104,13 +114,15 @@ cost_volume_mma_kernel(const bf16* __restrict__ prv,
       for (int r = 0; r < 4; ++r) acc[d][j][r] = 0.0f;
 
   // the window's pixels and the prv tile's, a two-stage ring of chunks
-  cm_stage<TY, DG>(nb, pb, stages, 0, 0, Cfg::PIX, x0, y0, H, W, C, vec);
+  cm_stage<TY, DG>(nb, pb, stages, 0, 0, Cfg::PIX, x0, y0, H, W, C, vec,
+                   nh);
   cp_async_commit();
   for (int ch = 0; ch < n_chunks; ++ch) {
     const bf16* buf = stages + (ch & 1) * Cfg::STAGE;
     if (ch + 1 < n_chunks) {
       cm_stage<TY, DG>(nb, pb, stages + ((ch + 1) & 1) * Cfg::STAGE,
-                       (ch + 1) * CM_CC, 0, Cfg::PIX, x0, y0, H, W, C, vec);
+                       (ch + 1) * CM_CC, 0, Cfg::PIX, x0, y0, H, W, C, vec,
+                       nh);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -126,7 +138,8 @@ cost_volume_mma_kernel(const bf16* __restrict__ prv,
 
 template <int TY, int DG>
 cudaError_t launch_cv_mma(const void* prv, const void* nxt, void* out,
-                          int B, int H, int W, int C, cudaStream_t stream) {
+                          int B, int H, int W, int C, int nh,
+                          cudaStream_t stream) {
   using Cfg = CmCfg<TY, DG>;
   auto kern = cost_volume_mma_kernel<TY, DG>;
   constexpr int max_smem = 2 * Cfg::STAGE * (int)sizeof(bf16);
@@ -151,31 +164,38 @@ cudaError_t launch_cv_mma(const void* prv, const void* nxt, void* out,
                                  16) == 0;
   kern<<<dim3((W + CM_TX - 1) / CM_TX, ny, B), Cfg::NT, smem, stream>>>(
       static_cast<const bf16*>(prv), static_cast<const bf16*>(nxt),
-      static_cast<bf16*>(out), H, W, C, vec);
+      static_cast<bf16*>(out), H, W, C, vec, nh);
   return cudaGetLastError();
 }
 
 cudaError_t launch_cv_bf16(const void* prv, const void* nxt, void* out,
-                           int B, int H, int W, int C, cudaStream_t stream) {
+                           int B, int H, int W, int C, int nh,
+                           cudaStream_t stream) {
   cudaError_t err;
   switch (cm_tile_rows(B, H, W, &err)) {
-    case 8: return launch_cv_mma<8, 1>(prv, nxt, out, B, H, W, C, stream);
-    case 4: return launch_cv_mma<4, 3>(prv, nxt, out, B, H, W, C, stream);
-    case 2: return launch_cv_mma<2, 9>(prv, nxt, out, B, H, W, C, stream);
+    case 8:
+      return launch_cv_mma<8, 1>(prv, nxt, out, B, H, W, C, nh, stream);
+    case 4:
+      return launch_cv_mma<4, 3>(prv, nxt, out, B, H, W, C, nh, stream);
+    case 2:
+      return launch_cv_mma<2, 9>(prv, nxt, out, B, H, W, C, nh, stream);
     default: return err;
   }
 }
 
 }  // namespace qpw
 
+// H: prv's rows; nxt has H + 2 * nxt_halo (0, or 4 for the haloed mode).
 extern "C" int qpw_cost_volume(const void* prv, const void* nxt, void* out,
-                               int B, int H, int W, int C, int dtype,
-                               void* stream) {
+                               int B, int H, int W, int C, int nxt_halo,
+                               int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B < 1 || H < 1 || W < 1 || C < 1) return cudaErrorInvalidValue;
+  if (nxt_halo != 0 && nxt_halo != qpw::CV_R) return cudaErrorInvalidValue;
   if (dtype == 0)
     return qpw::launch_correlate<float, false>(prv, nxt, nullptr, out, B, H,
-                                               W, C, 0.0f, s);
-  if (dtype == 1) return qpw::launch_cv_bf16(prv, nxt, out, B, H, W, C, s);
+                                               W, C, 0.0f, nxt_halo, s);
+  if (dtype == 1)
+    return qpw::launch_cv_bf16(prv, nxt, out, B, H, W, C, nxt_halo, s);
   return cudaErrorInvalidValue;
 }

@@ -11,6 +11,19 @@
 // _cv_bwd_nxt_impl). K4b is the scatter of dacc * prv onto the displaced
 // pixels written as a gather, so no sum needs atomics.
 //
+// Haloed modes (the spatial H-sharded path's, where nxt carries 4 rows
+// exchanged from the neighbouring shards above and below the image):
+//  - K4a with nxt_halo = 4 (_cv_bwd_prv_impl(nxt_h_haloed=True)): nxt is
+//    (B, H + 8, W, C), image row y at row y + 4, and its window rows are
+//    read there instead of zero-padded (the staging's source row shift sh);
+//  - K4b with out_halo = 4 (_cv_bwd_nxt_impl(h_haloed_out=True)): dnxt is
+//    (B, H + 8, W, C), row u standing for image row u - 4: the gradient of
+//    the halo rows too, which the exchange's backward returns to their
+//    owners. The grid covers the H + 8 output rows (the output row offset
+//    oh); source pixels (u - 4 - di, .) outside [0, H) add nothing, as
+//    the plain mode's zero padding does.
+// The products and their order are the plain modes'.
+//
 // What bounds them on the H100: bytes, as for K1 (cost_volume.cu). A
 // pixel reads 81 dacc values and C map values and writes C: 81·C
 // multiply-adds for 162 + 4·C bytes, under the tensor cores' ridge.
@@ -105,21 +118,22 @@ constexpr int CVB_CG = 32;  // float32 body: channels per block
 template <typename T, bool REVERSED>
 __global__ void __launch_bounds__(CV_THREADS)
 cv_bwd_kernel(const T* __restrict__ dacc, const T* __restrict__ src,
-              T* __restrict__ out, int H, int W, int C, int n_groups) {
+              T* __restrict__ out, int H, int W, int C, int n_groups, int sh,
+              int oh) {
   __shared__ float win[CV_CC][CV_WY][CV_WXP];
 
   const int b = blockIdx.z / n_groups;
   const int c_begin = (blockIdx.z % n_groups) * CVB_CG;
   const int c_end = min(C, c_begin + CVB_CG);
+  // image rows: the block's first output row is image row y0 (from -oh)
   const int x0 = blockIdx.x * CV_TX;
-  const int y0 = blockIdx.y * CV_TY;
+  const int y0 = blockIdx.y * CV_TY - oh;
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * CV_TX + tx;
   const int x = x0 + tx, y = y0 + ty;
-  const bool live = x < W && y < H;
-  const size_t plane = (size_t)H * W;
-  const T* db = dacc + (size_t)b * plane * CV_K;
-  const T* sb = src + (size_t)b * plane * C;
+  const bool live = x < W && y < H + oh;
+  const T* db = dacc + (size_t)b * H * W * CV_K;
+  const T* sb = src + (size_t)b * (H + 2 * sh) * W * C;
 
   float coef[CV_K];
 #pragma unroll
@@ -137,15 +151,17 @@ cv_bwd_kernel(const T* __restrict__ dacc, const T* __restrict__ src,
   }
 
   const float inv_c = 1.0f / (float)C;
-  T* o = out + (((size_t)b * H + y) * W + x) * C;
+  T* o = out + (((size_t)b * (H + 2 * oh) + y + oh) * W + x) * C;
   for (int c0 = c_begin; c0 < c_end; c0 += CV_CC) {
     // Stage the window, channel fastest across threads.
     for (int i = tid; i < CV_WY * CV_WX * CV_CC; i += CV_THREADS) {
       const int cc = i % CV_CC;
       const int p = i / CV_CC;
       const int wy = p / CV_WX, wx = p % CV_WX;
-      const int gy = y0 - CV_R + wy, gx = x0 - CV_R + wx, c = c0 + cc;
-      win[cc][wy][wx] = (c < c_end && gy >= 0 && gy < H && gx >= 0 && gx < W)
+      // the src row of image row y0 - CV_R + wy
+      const int gy = y0 - CV_R + wy + sh, gx = x0 - CV_R + wx, c = c0 + cc;
+      win[cc][wy][wx] = (c < c_end && gy >= 0 && gy < H + 2 * sh && gx >= 0 &&
+                         gx < W)
                             ? to_f<T>(sb[((size_t)gy * W + gx) * C + c])
                             : 0.0f;
     }
@@ -174,14 +190,15 @@ cv_bwd_kernel(const T* __restrict__ dacc, const T* __restrict__ src,
 
 template <typename T, bool REVERSED>
 cudaError_t launch_cv_bwd(const void* dacc, const void* src, void* out,
-                          int B, int H, int W, int C, cudaStream_t stream) {
+                          int B, int H, int W, int C, int sh, int oh,
+                          cudaStream_t stream) {
   const int n_groups = (C + CVB_CG - 1) / CVB_CG;
-  const dim3 grid((W + CV_TX - 1) / CV_TX, (H + CV_TY - 1) / CV_TY,
-                  B * n_groups);
+  const dim3 grid((W + CV_TX - 1) / CV_TX,
+                  (H + 2 * oh + CV_TY - 1) / CV_TY, B * n_groups);
   const dim3 block(CV_TX, CV_TY);
   cv_bwd_kernel<T, REVERSED><<<grid, block, 0, stream>>>(
       static_cast<const T*>(dacc), static_cast<const T*>(src),
-      static_cast<T*>(out), H, W, C, n_groups);
+      static_cast<T*>(out), H, W, C, n_groups, sh, oh);
   return cudaGetLastError();
 }
 
@@ -210,7 +227,7 @@ template <bool REVERSED, int TY>
 __global__ void __launch_bounds__(CbCfg<REVERSED, TY>::NT, 2)
 cv_bwd_mma_kernel(const bf16* __restrict__ dacc, const bf16* __restrict__ src,
                   bf16* __restrict__ out, int H, int W, int C, int n_groups,
-                  int vec) {
+                  int vec, int sh, int oh) {
   using Cfg = CbCfg<REVERSED, TY>;
   extern __shared__ __align__(16) unsigned char cb_smem[];
   bf16* const wsm = reinterpret_cast<bf16*>(cb_smem);
@@ -219,7 +236,8 @@ cv_bwd_mma_kernel(const bf16* __restrict__ dacc, const bf16* __restrict__ src,
   const int b = blockIdx.z / n_groups;
   const int c0 = (blockIdx.z % n_groups) * CB_CC;
   const int c_end = min(C, c0 + CB_CC);
-  const int x0 = blockIdx.x * CB_TX, y0 = blockIdx.y * TY;
+  // image rows: the block's first output row is image row y0 (from -oh)
+  const int x0 = blockIdx.x * CB_TX, y0 = blockIdx.y * TY - oh;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
   // dacc row r of the block: its image row, the global element index of
@@ -274,13 +292,16 @@ cv_bwd_mma_kernel(const bf16* __restrict__ dacc, const bf16* __restrict__ src,
     }
   }
   // The block's 32 channels of the C-channel window, 4 segments of 8 a
-  // pixel; zeros outside the image and past C.
+  // pixel; zeros outside the map's rows (the image's, and K4a's supplied
+  // halo rows) and columns and past C.
   {
-    const bf16* const sb = src + (size_t)b * H * W * C;
+    const bf16* const sb = src + (size_t)b * (H + 2 * sh) * W * C;
     for (int i = tid; i < Cfg::WIN * 4; i += Cfg::NT) {
       const int pix = i >> 2, c = c0 + (i & 3) * 8;
-      const int gy = y0 - CV_R + pix / CB_WX, gx = x0 - CV_R + pix % CB_WX;
-      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W && c < C;
+      const int gy = y0 - CV_R + sh + pix / CB_WX;
+      const int gx = x0 - CV_R + pix % CB_WX;
+      const bool in =
+          gy >= 0 && gy < H + 2 * sh && gx >= 0 && gx < W && c < C;
       const bf16* g = in ? sb + ((size_t)gy * W + gx) * C + c : sb;
       bf16* dst = wsm + pix * CB_PS + (i & 3) * 8;
       if (vec) {
@@ -397,13 +418,14 @@ cv_bwd_mma_kernel(const bf16* __restrict__ dacc, const bf16* __restrict__ src,
         so[(8 * j + 2 * t + (r & 1)) * CB_PS + mt * 16 + g + (r & 2) * 4] =
             __float2bfloat16_rn(acc[mt][j][r] * inv_c);
   __syncwarp();
-  if (y < H) {
+  if (y < H + oh) {
     for (int u = lane; u < CB_TX * 4; u += 32) {
       const int px = u >> 2, c = c0 + (u & 3) * 8;
       const int x = x0 + px;
       if (x >= W || c >= c_end) continue;
       const bf16* s = so + px * CB_PS + (u & 3) * 8;
-      bf16* dst = out + (((size_t)b * H + y) * W + x) * C + c;
+      bf16* dst =
+          out + (((size_t)b * (H + 2 * oh) + y + oh) * W + x) * C + c;
       if (vec) {
         *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(s);
       } else {
@@ -415,8 +437,8 @@ cv_bwd_mma_kernel(const bf16* __restrict__ dacc, const bf16* __restrict__ src,
 
 template <bool REVERSED, int TY>
 cudaError_t launch_cvb_mma(const void* dacc, const void* src, void* out,
-                           int B, int H, int W, int C, int dev,
-                           cudaStream_t stream) {
+                           int B, int H, int W, int C, int sh, int oh,
+                           int dev, cudaStream_t stream) {
   using Cfg = CbCfg<REVERSED, TY>;
   auto kern = cv_bwd_mma_kernel<REVERSED, TY>;
   // the dynamic shared-memory limit, once a device (one bit each)
@@ -429,7 +451,7 @@ cudaError_t launch_cvb_mma(const void* dacc, const void* src, void* out,
     limit_set.fetch_or(bit, std::memory_order_relaxed);
   }
   const int n_groups = (C + CB_CC - 1) / CB_CC;
-  const int ny = (H + TY - 1) / TY;
+  const int ny = (H + 2 * oh + TY - 1) / TY;
   if (ny > 65535 || (long long)B * n_groups > 65535)
     return cudaErrorInvalidValue;
   const int vec = C % 8 == 0 && ((reinterpret_cast<uintptr_t>(src) |
@@ -439,7 +461,7 @@ cudaError_t launch_cvb_mma(const void* dacc, const void* src, void* out,
          Cfg::SMEM, stream>>>(static_cast<const bf16*>(dacc),
                               static_cast<const bf16*>(src),
                               static_cast<bf16*>(out), H, W, C, n_groups,
-                              vec);
+                              vec, sh, oh);
   return cudaGetLastError();
 }
 
@@ -450,7 +472,8 @@ cudaError_t launch_cvb_mma(const void* dacc, const void* src, void* out,
 // 700 W.)
 template <bool REVERSED>
 cudaError_t launch_cvb_bf16(const void* dacc, const void* src, void* out,
-                            int B, int H, int W, int C, cudaStream_t stream) {
+                            int B, int H, int W, int C, int sh, int oh,
+                            cudaStream_t stream) {
   int dev = 0, n_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -458,43 +481,49 @@ cudaError_t launch_cvb_bf16(const void* dacc, const void* src, void* out,
   if (err != cudaSuccess) return err;
   const long long cols = (long long)B * ((W + CB_TX - 1) / CB_TX) *
                          ((C + CB_CC - 1) / CB_CC);
-  auto blocks = [&](int ty) { return cols * ((H + ty - 1) / ty); };
+  auto blocks = [&](int ty) { return cols * ((H + 2 * oh + ty - 1) / ty); };
   if (2 * blocks(8) >= n_sm)
-    return launch_cvb_mma<REVERSED, 8>(dacc, src, out, B, H, W, C, dev,
-                                       stream);
+    return launch_cvb_mma<REVERSED, 8>(dacc, src, out, B, H, W, C, sh, oh,
+                                       dev, stream);
   if (2 * blocks(4) >= n_sm)
-    return launch_cvb_mma<REVERSED, 4>(dacc, src, out, B, H, W, C, dev,
-                                       stream);
-  return launch_cvb_mma<REVERSED, 2>(dacc, src, out, B, H, W, C, dev,
+    return launch_cvb_mma<REVERSED, 4>(dacc, src, out, B, H, W, C, sh, oh,
+                                       dev, stream);
+  return launch_cvb_mma<REVERSED, 2>(dacc, src, out, B, H, W, C, sh, oh, dev,
                                      stream);
 }
 
 template <bool REVERSED>
 int dispatch_cv_bwd(const void* dacc, const void* src, void* out, int B,
-                    int H, int W, int C, int dtype, void* stream) {
+                    int H, int W, int C, int halo, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B < 1 || H < 1 || W < 1 || C < 1) return cudaErrorInvalidValue;
+  if (halo != 0 && halo != CV_R) return cudaErrorInvalidValue;
+  // K4a's halo is its nxt's (the source rows), K4b's its output's
+  const int sh = REVERSED ? 0 : halo, oh = REVERSED ? halo : 0;
   if (dtype == 0)
-    return launch_cv_bwd<float, REVERSED>(dacc, src, out, B, H, W, C, s);
+    return launch_cv_bwd<float, REVERSED>(dacc, src, out, B, H, W, C, sh, oh,
+                                          s);
   if (dtype == 1)
-    return launch_cvb_bf16<REVERSED>(dacc, src, out, B, H, W, C, s);
+    return launch_cvb_bf16<REVERSED>(dacc, src, out, B, H, W, C, sh, oh, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace qpw
 
-// K4a: dprv from dacc and nxt.
+// K4a: dprv from dacc and nxt; H is dacc's rows, nxt has H + 2 nxt_halo
+// (0, or 4 for the haloed mode).
 extern "C" int qpw_cost_volume_bwd_prv(const void* dacc, const void* nxt,
                                        void* dprv, int B, int H, int W, int C,
-                                       int dtype, void* stream) {
-  return qpw::dispatch_cv_bwd<false>(dacc, nxt, dprv, B, H, W, C, dtype,
-                                     stream);
+                                       int nxt_halo, int dtype, void* stream) {
+  return qpw::dispatch_cv_bwd<false>(dacc, nxt, dprv, B, H, W, C, nxt_halo,
+                                     dtype, stream);
 }
 
-// K4b: dnxt from dacc and prv.
+// K4b: dnxt from dacc and prv; H is dacc's rows, dnxt has H + 2 out_halo
+// (0, or 4 for the haloed mode).
 extern "C" int qpw_cost_volume_bwd_nxt(const void* dacc, const void* prv,
                                        void* dnxt, int B, int H, int W, int C,
-                                       int dtype, void* stream) {
-  return qpw::dispatch_cv_bwd<true>(dacc, prv, dnxt, B, H, W, C, dtype,
-                                    stream);
+                                       int out_halo, int dtype, void* stream) {
+  return qpw::dispatch_cv_bwd<true>(dacc, prv, dnxt, B, H, W, C, out_halo,
+                                    dtype, stream);
 }

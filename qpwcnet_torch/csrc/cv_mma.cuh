@@ -38,27 +38,33 @@ struct CmCfg {
 // Chunk c0 of staged pixels [lo, hi) into buf: the window's pixels (from
 // nb) below WIN, the prv tile's (from pb) from WIN on, each 4 segments of
 // 8 channels; zeros outside the image and past C. vec: 16-byte cp.async
-// (C % 8 == 0 and both maps 16-byte aligned), else element loads.
+// (C % 8 == 0 and both maps 16-byte aligned), else element loads. nh: the
+// rows nb holds above (and below) the image, K1's haloed mode (nb is
+// (H + 2 nh) x W, image row y at row y + nh; zeros only outside those
+// rows); 0 for the plain mode and for K3, which stages only the prv tile
+// here.
 template <int TY, int DG>
 __device__ __forceinline__ void cm_stage(const bf16* nb, const bf16* pb,
                                          bf16* buf, int c0, int lo, int hi,
                                          int x0, int y0, int H, int W, int C,
-                                         int vec) {
+                                         int vec, int nh) {
   using Cfg = CmCfg<TY, DG>;
   for (int i = threadIdx.x + lo * 4; i < hi * 4; i += Cfg::NT) {
     const int pix = i >> 2, c = c0 + (i & 3) * 8;
-    int gy, gx;
+    int gy, gx, rows;
     const bf16* src;
     if (pix < Cfg::WIN) {
-      gy = y0 - CV_R + pix / CM_WX;
+      gy = y0 - CV_R + nh + pix / CM_WX;
       gx = x0 - CV_R + pix % CM_WX;
       src = nb;
+      rows = H + 2 * nh;
     } else {
       gy = y0 + (pix - Cfg::WIN) / CM_TX;
       gx = x0 + (pix - Cfg::WIN) % CM_TX;
       src = pb;
+      rows = H;
     }
-    const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W && c < C;
+    const bool in = gy >= 0 && gy < rows && gx >= 0 && gx < W && c < C;
     const bf16* g = in ? src + ((size_t)gy * W + gx) * C + c : src;
     bf16* dst = buf + pix * CM_PS + (i & 3) * 8;
     if (vec) {

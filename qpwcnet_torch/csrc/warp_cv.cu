@@ -222,7 +222,7 @@ warp_cv_mma_kernel(const bf16* __restrict__ prv,
   // chunk 0's prv tile by cp.async, in flight during the corners and the
   // gather
   cm_stage<TY, DG>(nb, pb, buf, 0, Cfg::WIN, Cfg::PIX, x0, y0, H, W, C,
-                   vec);
+                   vec, 0);
   cp_async_commit();
   wcv_corners<TY, DG>(flow + (size_t)b * plane * 2, corner, wax, way, x0,
                       y0, H, W, ww);
@@ -242,7 +242,7 @@ warp_cv_mma_kernel(const bf16* __restrict__ prv,
   for (int ch = 1; ch < n_chunks; ++ch) {
     __syncthreads();
     cm_stage<TY, DG>(nb, pb, buf, ch * CM_CC, Cfg::WIN, Cfg::PIX, x0, y0, H,
-                     W, C, vec);
+                     W, C, vec, 0);
     cp_async_commit();
     window(ch);
     cm_products<TY, DG>(acc, buf, ch, C, ty, di0);
@@ -301,7 +301,7 @@ extern "C" int qpw_warp_cost_volume(const void* prv, const void* nxt,
   if (B < 1 || H < 2 || W < 2 || C < 1) return cudaErrorInvalidValue;
   if (dtype == 0)
     return qpw::launch_correlate<float, true>(prv, nxt, flow, out, B, H, W,
-                                              C, ww, s);
+                                              C, ww, 0, s);
   if (dtype == 1)
     return qpw::launch_wcv_bf16(prv, nxt, flow, out, B, H, W, C, ww, s);
   return cudaErrorInvalidValue;

@@ -4,6 +4,11 @@ Tensors are logical NCHW in channels_last memory (qpwcnet_torch/layout.py).
 Parameters are float32; each block computes in its ``dtype``; BatchNorm,
 the flow conv and the OptFlow output scale stay float32
 (``blocks.py:245-273``).
+
+``spatial`` (FlowBlock, UpFlowBlock): a ``parallel.SpatialConfig`` when
+the model runs H-sharded; the cost volume and the warp then exchange
+halo rows between the shards (``parallel/spatial_ops.py``). BatchNorm and
+OptFlow read the active mesh (``parallel/transport.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +26,11 @@ from qpwcnet_torch.ops.cuda.warp_cv_kernel import (
     warp_cost_volume_trainable,
 )
 from qpwcnet_torch.ops.warp import backward_warp
+from qpwcnet_torch.parallel.spatial_ops import (
+    backward_warp_spatial,
+    cost_volume_spatial,
+)
+from qpwcnet_torch.parallel.transport import active_mesh, n_shards
 from qpwcnet_torch.quantize.qlayers import QConv, QConvTranspose
 
 
@@ -85,7 +95,10 @@ class BatchNorm(nn.Module):
     Train mode normalizes with the batch statistics, the biased variance
     E[x²] - E[x]² clipped at 0 (Flax's fast variance), and updates
     ``running = momentum * running + (1 - momentum) * batch`` — torch's
-    BatchNorm2d would update with the unbiased variance.
+    BatchNorm2d would update with the unbiased variance. Under a mesh of
+    several processes the statistics are over every shard and data rank
+    (the sums all-reduced), so every process updates the same running
+    statistics; a local mesh's batch already holds every shard.
     """
 
     def __init__(self, features: int, momentum: float = 0.99,
@@ -101,9 +114,15 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
         if self.training:
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean,
-                              min=0.0)
+            mesh = active_mesh()
+            if mesh is None or mesh.procs == 1:
+                mean = x.mean(dim=(0, 2, 3))
+                sq = (x * x).mean(dim=(0, 2, 3))
+            else:
+                sums = mesh.all_sum(torch.stack(
+                    [x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3))]))
+                mean, sq = sums / (x.numel() // x.shape[1] * mesh.procs)
+            var = torch.clamp(sq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_((1.0 - m) * mean)
@@ -118,7 +137,9 @@ class BatchNorm(nn.Module):
 class OptFlow(nn.Module):
     """Flow-regression head: 4 SepConvs (128/64/32/16, Mish) -> 1x1 Conv
     Mish -> BatchNorm -> 3x3 Conv (2 ch, no bias), times sqrt(h² + w²) of
-    the input resolution under head_scale='diag' (1 under 'unit')."""
+    the input resolution under head_scale='diag' (1 under 'unit'): the
+    whole image's under an H-sharded mesh, whose input is a shard's
+    rows."""
 
     def __init__(self, in_ch: int, filters: Sequence[int] = (128, 64, 32, 16),
                  dtype: torch.dtype = torch.float32,
@@ -138,7 +159,7 @@ class OptFlow(nn.Module):
                              dtype=torch.float32)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h, w = x.shape[2], x.shape[3]
+        h, w = x.shape[2] * n_shards(), x.shape[3]
         scale = (float(h * h + w * w) ** 0.5
                  if self.head_scale == "diag" else 1.0)
         for layer in self.of_feats:
@@ -149,17 +170,25 @@ class OptFlow(nn.Module):
 
 class FlowBlock(nn.Module):
     """Coarsest-level flow estimator: concat[cost_volume(prv, nxt), prv,
-    nxt] -> OptFlow."""
+    nxt] -> OptFlow. Under ``spatial`` the cost volume is the
+    halo-exchanged :func:`cost_volume_spatial`."""
 
     def __init__(self, feat_ch: int, dtype: torch.dtype = torch.float32,
-                 cv_impl: str = "auto", head_scale: str = "diag"):
+                 cv_impl: str = "auto", head_scale: str = "diag",
+                 spatial=None):
         super().__init__()
         self.cv_impl = cv_impl
+        self.spatial = spatial
         self.flow = OptFlow(81 + 2 * feat_ch, dtype=dtype,
                             head_scale=head_scale)
 
     def forward(self, prv: torch.Tensor, nxt: torch.Tensor) -> torch.Tensor:
-        cost = nchw(cost_volume(nhwc(prv), nhwc(nxt), impl=self.cv_impl))
+        if self.spatial is not None:
+            cost = nchw(cost_volume_spatial(nhwc(prv), nhwc(nxt),
+                                            self.spatial))
+        else:
+            cost = nchw(cost_volume(nhwc(prv), nhwc(nxt),
+                                    impl=self.cv_impl))
         return self.flow(cat_channels([cost, prv, nxt]))
 
 
@@ -169,21 +198,27 @@ class UpFlowBlock(nn.Module):
     not concatenated). residual=True adds the head's output to flo.
 
     cv_impl='fused' runs the fused warp+correlate kernel, whose warp
-    clamps each displacement to ±FUSED_WARP_WINDOW."""
+    clamps each displacement to ±FUSED_WARP_WINDOW. ``spatial`` takes
+    precedence: the window warp and the halo-exchanged cost volume
+    (``parallel/spatial_ops.py``), as in the JAX block."""
 
     def __init__(self, feat_ch: int, dtype: torch.dtype = torch.float32,
                  cv_impl: str = "auto", head_scale: str = "diag",
-                 residual: bool = False):
+                 residual: bool = False, spatial=None):
         super().__init__()
         self.cv_impl = cv_impl
         self.residual = residual
+        self.spatial = spatial
         self.flow = OptFlow(81 + feat_ch + 2, dtype=dtype,
                             head_scale=head_scale)
 
     def forward(self, prv: torch.Tensor, nxt: torch.Tensor,
                 flo: torch.Tensor) -> torch.Tensor:
         flo32 = nhwc(flo.float()).contiguous()
-        if self.cv_impl == "fused":
+        if self.spatial is not None:
+            nxt_w = backward_warp_spatial(nhwc(nxt), flo32, self.spatial)
+            cost = cost_volume_spatial(nhwc(prv), nxt_w, self.spatial)
+        elif self.cv_impl == "fused":
             cost = warp_cost_volume_trainable(nhwc(prv), nhwc(nxt), flo32,
                                               warp_window=FUSED_WARP_WINDOW)
         else:

@@ -29,6 +29,7 @@ from qpwcnet_torch.models.blocks import (
 from qpwcnet_torch.ops.cuda.stem_kernel import downconv_stage_trainable
 from qpwcnet_torch.ops.cuda.upconv_kernel import upconv_stage_trainable
 from qpwcnet_torch.ops.resize import avg_pool_2x, upsample2x_bilinear_nchw
+from qpwcnet_torch.parallel.transport import use_mesh
 from qpwcnet_torch.quantize.qlayers import QConv, QConvTranspose
 
 ENCODER_FILTERS = (16, 32, 64, 128, 256)
@@ -122,23 +123,25 @@ class Flower(nn.Module):
 
     cv_impl: one string for every level ('auto' | 'plain' | 'fused'),
     'fast' (fused at the finest UpFlowBlock only, 'auto' elsewhere), or a
-    sequence of num_levels + 1 strings, coarsest first.
+    sequence of num_levels + 1 strings, coarsest first. spatial: the
+    blocks' ``parallel.SpatialConfig`` when the model runs H-sharded.
     """
 
     def __init__(self, enc_ch: int = ENCODER_FILTERS[-1],
                  dec_ch: Sequence[int] = (256, 128, 64, 32),
                  dtype: torch.dtype = torch.float32,
                  cv_impl: CvImpl = "auto", head_scale: str = "diag",
-                 residual: bool = False):
+                 residual: bool = False, spatial=None):
         super().__init__()
         self.num_levels = len(dec_ch)
         self.cv_impl = cv_impl if isinstance(cv_impl, str) else tuple(cv_impl)
         self.flow_0 = FlowBlock(enc_ch, dtype=dtype,
                                 cv_impl=self.impl_at(0),
-                                head_scale=head_scale)
+                                head_scale=head_scale, spatial=spatial)
         self.upflows = nn.ModuleList(
             UpFlowBlock(c, dtype=dtype, cv_impl=self.impl_at(i + 1),
-                        head_scale=head_scale, residual=residual)
+                        head_scale=head_scale, residual=residual,
+                        spatial=spatial)
             for i, c in enumerate(dec_ch))
 
     def impl_at(self, i: int) -> str:
@@ -172,20 +175,33 @@ class PWCFlowNet(nn.Module):
 
     fuse_batch=True runs the siamese encoder/decoder once on the 2B stack
     [prv; nxt] (exact: the pyramid has no normalizer).
+
+    spatial: a ``parallel.SpatialConfig``: the model runs H-sharded over
+    its mesh's 'model' axis (inputs from ``parallel.shard_batch_spatial``,
+    outputs sharded alike); forward makes the mesh active for every op.
     """
 
     def __init__(self, dtype: torch.dtype = torch.float32,
                  cv_impl: CvImpl = "auto", head_scale: str = "diag",
                  residual: bool = False, stem_stages: int = 0,
-                 fuse_batch: bool = True, upconv_stages: int = 0):
+                 fuse_batch: bool = True, upconv_stages: int = 0,
+                 spatial=None):
         super().__init__()
         self.fuse_batch = fuse_batch
+        self.spatial = spatial
         self.encoder = Encoder(dtype=dtype, stem_stages=stem_stages)
         self.decoder = Decoder(dtype=dtype, upconv_stages=upconv_stages)
         self.flower = Flower(dtype=dtype, cv_impl=cv_impl,
-                             head_scale=head_scale, residual=residual)
+                             head_scale=head_scale, residual=residual,
+                             spatial=spatial)
 
     def forward(self, inputs: torch.Tensor, multiscale: bool = False):
+        if self.spatial is None:
+            return self._forward(inputs, multiscale)
+        with use_mesh(self.spatial.mesh):
+            return self._forward(inputs, multiscale)
+
+    def _forward(self, inputs: torch.Tensor, multiscale: bool):
         x = nchw(inputs)
         img_prv = x[:, :3].contiguous(memory_format=CHANNELS_LAST)
         img_nxt = x[:, 3:].contiguous(memory_format=CHANNELS_LAST)
@@ -339,14 +355,24 @@ def build_flow_net(seed: int = 0, device: Union[str, torch.device] = "cuda",
                    dtype: torch.dtype = torch.float32,
                    cv_impl: CvImpl = "auto", stem_stages: int = 0,
                    head_scale: str = "diag", residual: bool = False,
-                   fuse_batch: bool = True,
-                   upconv_stages: int = 0) -> PWCFlowNet:
+                   fuse_batch: bool = True, upconv_stages: int = 0,
+                   spatial=None) -> PWCFlowNet:
     """Construct a PWCFlowNet on ``device`` (the card unless the caller
     asks for the CPU) with float32 parameters drawn from ``seed``,
-    computing in ``dtype``; returned in eval mode."""
+    computing in ``dtype``; returned in eval mode.
+
+    spatial: a ``parallel.SpatialConfig`` for the H-sharded path (the
+    parameters are the same with or without it). The fused stem and
+    upconv kernels are not shard-aware, so ``stem_stages`` and
+    ``upconv_stages`` refuse it, as JAX's build_flow_net does."""
+    if (stem_stages or upconv_stages) and spatial is not None:
+        raise ValueError(
+            "stem_stages and upconv_stages need the unsharded model: the "
+            "fused stem and upconv kernels are not H-shard-aware")
     model = PWCFlowNet(dtype=dtype, cv_impl=cv_impl, head_scale=head_scale,
                        residual=residual, stem_stages=stem_stages,
-                       fuse_batch=fuse_batch, upconv_stages=upconv_stages)
+                       fuse_batch=fuse_batch, upconv_stages=upconv_stages,
+                       spatial=spatial)
     init_weights(model, seed, head_scale)
     return model.to(device).eval()
 

@@ -8,16 +8,22 @@ compiles ``qpwcnet_torch/csrc/*.cu`` at the first launch.
 
 from qpwcnet_torch.ops.cuda.cost_volume_kernel import (
     cost_volume_bwd_nxt_cuda,
+    cost_volume_bwd_nxt_haloed_cuda,
     cost_volume_bwd_prv_cuda,
+    cost_volume_bwd_prv_haloed_cuda,
     cost_volume_cuda,
+    cost_volume_haloed_cuda,
 )
 from qpwcnet_torch.ops.cuda.stem_kernel import downconv_stage_cuda
 from qpwcnet_torch.ops.cuda.upconv_kernel import upconv_stage_cuda
 from qpwcnet_torch.ops.cuda.warp_cv_kernel import warp_cost_volume_cuda
 
+# the haloed modes of K1, K4a and K4b (the spatial path's) count apart
 KERNEL_WRAPPERS = (cost_volume_cuda, downconv_stage_cuda,
                    warp_cost_volume_cuda, cost_volume_bwd_prv_cuda,
-                   cost_volume_bwd_nxt_cuda, upconv_stage_cuda)
+                   cost_volume_bwd_nxt_cuda, upconv_stage_cuda,
+                   cost_volume_haloed_cuda, cost_volume_bwd_prv_haloed_cuda,
+                   cost_volume_bwd_nxt_haloed_cuda)
 
 
 def reset_launch_counts() -> None:

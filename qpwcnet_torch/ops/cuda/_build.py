@@ -35,12 +35,14 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the entry points (restype is int: a cudaError_t).
 SIGNATURES = {
-    # prv, nxt, out, B, H, W, C, dtype, stream
-    "qpw_cost_volume": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # dacc, nxt, dprv, B, H, W, C, dtype, stream
-    "qpw_cost_volume_bwd_prv": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # dacc, prv, dnxt, B, H, W, C, dtype, stream
-    "qpw_cost_volume_bwd_nxt": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # prv, nxt, out, B, H, W, C, nxt_halo, dtype, stream (H: prv's rows;
+    # nxt has H + 2 nxt_halo)
+    "qpw_cost_volume": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # dacc, nxt, dprv, B, H, W, C, nxt_halo, dtype, stream
+    "qpw_cost_volume_bwd_prv": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # dacc, prv, dnxt, B, H, W, C, out_halo, dtype, stream (dnxt has
+    # H + 2 out_halo rows)
+    "qpw_cost_volume_bwd_nxt": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # prv, nxt, flow, out, B, H, W, C, warp_window, dtype, stream
     "qpw_warp_cost_volume": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     # x, w1, b1, w2, b2, w3, b3, out, wbuf, tmp, B, H, W, Cin, Cout,

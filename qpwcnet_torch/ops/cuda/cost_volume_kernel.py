@@ -57,11 +57,33 @@ from qpwcnet_torch.ops.cost_volume import (
     cost_volume_bwd_nxt_plain,
     cost_volume_bwd_prv_plain,
     cost_volume_plain,
+    cost_volume_plain_haloed,
 )
 from qpwcnet_torch.ops.cuda import _build
 
 SEARCH_RANGE = 4  # the kernels' compiled search range (81 outputs)
 N_DISP = (2 * SEARCH_RANGE + 1) ** 2
+
+
+def _launch_fwd(prv: torch.Tensor, nxt: torch.Tensor, search_range: int,
+                halo: int) -> torch.Tensor:
+    """Validate, allocate the (B, H, W, 81) output and launch K1; nxt has
+    ``halo`` supplied rows above and below prv's H."""
+    if search_range != SEARCH_RANGE:
+        raise ValueError(f"the CUDA cost volume is built for search_range="
+                         f"{SEARCH_RANGE}, got {search_range}")
+    b, h, w, c = prv.shape
+    _build.require(prv, "prv")
+    _build.require(nxt, "nxt", (b, h + 2 * halo, w, c), prv.dtype,
+                   prv.device)
+    out = torch.empty((b, h, w, N_DISP), dtype=prv.dtype, device=prv.device)
+    lib = _build.library()
+    with _build.on_device(prv.device):
+        err = lib.qpw_cost_volume(
+            prv.data_ptr(), nxt.data_ptr(), out.data_ptr(), b, h, w, c, halo,
+            _build.dtype_code(prv.dtype), _build.stream_ptr(prv.device))
+    _build.check(err, "qpw_cost_volume")
+    return out
 
 
 def cost_volume_cuda(prv: torch.Tensor, nxt: torch.Tensor,
@@ -73,36 +95,49 @@ def cost_volume_cuda(prv: torch.Tensor, nxt: torch.Tensor,
     """
     if not prv.is_cuda:
         return cost_volume_plain(prv, nxt, search_range=search_range)
-    if search_range != SEARCH_RANGE:
-        raise ValueError(f"the CUDA cost volume is built for search_range="
-                         f"{SEARCH_RANGE}, got {search_range}")
-    b, h, w, c = prv.shape
-    _build.require(prv, "prv")
-    _build.require(nxt, "nxt", prv.shape, prv.dtype, prv.device)
-    out = torch.empty((b, h, w, N_DISP), dtype=prv.dtype, device=prv.device)
-    lib = _build.library()
-    with _build.on_device(prv.device):
-        err = lib.qpw_cost_volume(
-            prv.data_ptr(), nxt.data_ptr(), out.data_ptr(), b, h, w, c,
-            _build.dtype_code(prv.dtype), _build.stream_ptr(prv.device))
-    _build.check(err, "qpw_cost_volume")
+    out = _launch_fwd(prv, nxt, search_range, 0)
     cost_volume_cuda.launches += 1
     return out
 
 
+def cost_volume_haloed_cuda(prv: torch.Tensor, nxt_h: torch.Tensor,
+                            search_range: int = 4) -> torch.Tensor:
+    """K1's haloed mode (``_cost_volume_pallas_impl(nxt_h_haloed=True)``):
+    prv (B, H, W, C) against nxt_h (B, H + 2r, W, C), whose H halo the
+    caller supplies (rows [r, H + r) aligned to prv's) -> (B, H, W, 81);
+    only W is zero-padded.
+
+    CPU tensors take :func:`cost_volume_plain_haloed`; CUDA tensors launch
+    the kernel or raise.
+    """
+    if not prv.is_cuda:
+        return cost_volume_plain_haloed(prv, nxt_h, search_range=search_range)
+    out = _launch_fwd(prv, nxt_h, search_range, search_range)
+    cost_volume_haloed_cuda.launches += 1
+    return out
+
+
 def _launch_bwd(entry: str, dacc: torch.Tensor, src: torch.Tensor,
-                src_name: str) -> torch.Tensor:
-    """Validate, allocate the (B, H, W, C) gradient and launch one of the
-    backward kernels."""
+                src_name: str, src_halo: int, out_halo: int) -> torch.Tensor:
+    """Validate, allocate the gradient and launch one of the backward
+    kernels: ``src`` has ``src_halo`` extra rows above and below dacc's H
+    (K4a's haloed nxt), the output ``out_halo`` (K4b's haloed dnxt)."""
+    _build.require(dacc, "dacc")
+    b, h, w, k = dacc.shape
+    if k != N_DISP:
+        raise ValueError(f"dacc has {k} channels, not {N_DISP}")
     _build.require(src, src_name)
-    b, h, w, c = src.shape
-    _build.require(dacc, "dacc", (b, h, w, N_DISP), src.dtype, src.device)
-    out = torch.empty_like(src)
+    c = src.shape[-1]
+    _build.require(src, src_name, (b, h + 2 * src_halo, w, c), dacc.dtype,
+                   dacc.device)
+    out = torch.empty((b, h + 2 * out_halo, w, c), dtype=src.dtype,
+                      device=src.device)
     lib = _build.library()
     with _build.on_device(src.device):
         err = getattr(lib, entry)(
             dacc.data_ptr(), src.data_ptr(), out.data_ptr(), b, h, w, c,
-            _build.dtype_code(src.dtype), _build.stream_ptr(src.device))
+            src_halo + out_halo, _build.dtype_code(src.dtype),
+            _build.stream_ptr(src.device))
     _build.check(err, entry)
     return out
 
@@ -117,8 +152,25 @@ def cost_volume_bwd_prv_cuda(dacc: torch.Tensor,
     """
     if not dacc.is_cuda:
         return cost_volume_bwd_prv_plain(dacc, nxt)
-    out = _launch_bwd("qpw_cost_volume_bwd_prv", dacc, nxt, "nxt")
+    out = _launch_bwd("qpw_cost_volume_bwd_prv", dacc, nxt, "nxt", 0, 0)
     cost_volume_bwd_prv_cuda.launches += 1
+    return out
+
+
+def cost_volume_bwd_prv_haloed_cuda(dacc: torch.Tensor,
+                                    nxt_h: torch.Tensor) -> torch.Tensor:
+    """K4a's haloed mode (``_cv_bwd_prv_impl(nxt_h_haloed=True)``): dprv
+    from dacc (B, H, W, 81) and the haloed nxt_h (B, H + 2r, W, C) ->
+    (B, H, W, C).
+
+    CPU tensors take :func:`cost_volume_bwd_prv_plain`; CUDA tensors
+    launch the kernel or raise.
+    """
+    if not dacc.is_cuda:
+        return cost_volume_bwd_prv_plain(dacc, nxt_h, nxt_h_haloed=True)
+    out = _launch_bwd("qpw_cost_volume_bwd_prv", dacc, nxt_h, "nxt",
+                      SEARCH_RANGE, 0)
+    cost_volume_bwd_prv_haloed_cuda.launches += 1
     return out
 
 
@@ -132,11 +184,31 @@ def cost_volume_bwd_nxt_cuda(dacc: torch.Tensor,
     """
     if not dacc.is_cuda:
         return cost_volume_bwd_nxt_plain(dacc, prv)
-    out = _launch_bwd("qpw_cost_volume_bwd_nxt", dacc, prv, "prv")
+    out = _launch_bwd("qpw_cost_volume_bwd_nxt", dacc, prv, "prv", 0, 0)
     cost_volume_bwd_nxt_cuda.launches += 1
     return out
 
 
+def cost_volume_bwd_nxt_haloed_cuda(dacc: torch.Tensor,
+                                    prv: torch.Tensor) -> torch.Tensor:
+    """K4b's haloed mode (``_cv_bwd_nxt_impl(h_haloed_out=True)``): the
+    gradient of a haloed nxt, (B, H + 2r, W, C), row u standing for image
+    row u - r, from dacc (B, H, W, 81) and prv (B, H, W, C).
+
+    CPU tensors take :func:`cost_volume_bwd_nxt_plain`; CUDA tensors
+    launch the kernel or raise.
+    """
+    if not dacc.is_cuda:
+        return cost_volume_bwd_nxt_plain(dacc, prv, h_haloed_out=True)
+    out = _launch_bwd("qpw_cost_volume_bwd_nxt", dacc, prv, "prv", 0,
+                      SEARCH_RANGE)
+    cost_volume_bwd_nxt_haloed_cuda.launches += 1
+    return out
+
+
 cost_volume_cuda.launches = 0
+cost_volume_haloed_cuda.launches = 0
 cost_volume_bwd_prv_cuda.launches = 0
+cost_volume_bwd_prv_haloed_cuda.launches = 0
 cost_volume_bwd_nxt_cuda.launches = 0
+cost_volume_bwd_nxt_haloed_cuda.launches = 0

@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from qpwcnet_torch.layout import nchw, nhwc
+from qpwcnet_torch.parallel.transport import active_shards, halo_rows
 
 
 def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
@@ -70,8 +71,17 @@ class _Upsample2x(torch.autograd.Function):
 def upsample2x_bilinear_nchw(x: torch.Tensor,
                              scale: float = 1.0) -> torch.Tensor:
     """:func:`upsample2x_bilinear` on an NCHW tensor (the model's layout),
-    with :class:`_Upsample2x`'s reproducible backward."""
-    y = _Upsample2x.apply(x)
+    with :class:`_Upsample2x`'s reproducible backward.
+
+    Under an H-sharded mesh each shard takes one row of each neighbour
+    (its own edge row at the global ends, the resize's clamp there) and
+    keeps its 2h output rows."""
+    if active_shards() is None:
+        y = _Upsample2x.apply(x)
+    else:
+        h = x.shape[2]
+        y = _Upsample2x.apply(halo_rows(x, 2, 1, 1, edge=True)).narrow(
+            2, 2, 2 * h)
     if scale != 1.0:
         y = y * scale
     return y

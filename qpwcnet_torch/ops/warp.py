@@ -51,9 +51,11 @@ def clip_balanced(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     return _ClipBalanced.apply(x, lo, hi)
 
 
-def warp_coords(flow: torch.Tensor, hp: int, wp: int):
+def warp_coords(flow: torch.Tensor, hp: int, wp: int, y_offset: int = 0):
     """Clamped corner origin and interpolation weights for a (B, H, W, 2)
-    float32 flow sampling a source of size (hp, wp), hp, wp >= 2.
+    float32 flow sampling a source of size (hp, wp), hp, wp >= 2. Output
+    row y queries source row ``y + y_offset + flow_y`` (the window warp's
+    source carries ``y_offset`` halo rows above the output rows).
 
     Returns (x0, y0, ax, ay), each (B, H, W) float32.
     """
@@ -61,7 +63,7 @@ def warp_coords(flow: torch.Tensor, hp: int, wp: int):
     gy = torch.arange(h, dtype=torch.float32, device=flow.device)[:, None]
     gx = torch.arange(w, dtype=torch.float32, device=flow.device)[None, :]
     qx = gx + flow[..., 0]
-    qy = gy + flow[..., 1]
+    qy = gy + flow[..., 1] + float(y_offset)
     x0 = torch.clamp(torch.floor(qx), 0.0, wp - 2.0)
     y0 = torch.clamp(torch.floor(qy), 0.0, hp - 2.0)
     ax = clip_balanced(qx - x0, 0.0, 1.0)
@@ -80,13 +82,14 @@ def _edge_pad(img: torch.Tensor) -> torch.Tensor:
                  mode="replicate").permute(0, 2, 3, 1)
 
 
-def _warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+def _warp(img: torch.Tensor, flow: torch.Tensor,
+          y_offset: int = 0) -> torch.Tensor:
     b, _, _, c = img.shape
     _, h, w, _ = flow.shape
     img = _edge_pad(img)
     hp, wp = img.shape[1], img.shape[2]
 
-    x0, y0, ax, ay = warp_coords(flow.float(), hp, wp)
+    x0, y0, ax, ay = warp_coords(flow.float(), hp, wp, y_offset)
     lin = (y0.long() * wp + x0.long()).reshape(b, h * w)
     flat = img.reshape(b, hp * wp, c)
     bidx = torch.arange(b, device=img.device)[:, None]
@@ -130,7 +133,7 @@ def _scatter_rows(n: int, idx: list, terms: list) -> torch.Tensor:
 
 
 def _warp_img_grad(img: torch.Tensor, flow: torch.Tensor,
-                   g: torch.Tensor) -> torch.Tensor:
+                   g: torch.Tensor, y_offset: int = 0) -> torch.Tensor:
     """d_img of ``_warp_bwd_impl``: the four corner weights times g (each
     term rounded to g's dtype), scatter-added over flattened HW
     (:func:`_scatter_rows`), then the gradient of the 1-pixel edge padding
@@ -138,7 +141,7 @@ def _warp_img_grad(img: torch.Tensor, flow: torch.Tensor,
     b, hi, wi, c = img.shape
     _, h, w, _ = flow.shape
     hp, wp = max(hi, 2), max(wi, 2)
-    x0, y0, ax, ay = warp_coords(flow.float(), hp, wp)
+    x0, y0, ax, ay = warp_coords(flow.float(), hp, wp, y_offset)
     base = (torch.arange(b, device=g.device)[:, None] * (hp * wp)
             + (y0.long() * wp + x0.long()).reshape(b, h * w))
     gf = g.reshape(b, h * w, c)
@@ -163,21 +166,24 @@ def _warp_img_grad(img: torch.Tensor, flow: torch.Tensor,
 
 class _BackwardWarp(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, img, flow):
+    def forward(ctx, img, flow, y_offset=0):
         ctx.save_for_backward(img, flow)
-        return _warp(img, flow)
+        ctx.y_offset = y_offset
+        return _warp(img, flow, y_offset)
 
     @staticmethod
     def backward(ctx, g):
         img, flow = ctx.saved_tensors
+        y_offset = ctx.y_offset
         d_img = d_flow = None
         if ctx.needs_input_grad[1]:
             with torch.enable_grad():
                 f = flow.detach().requires_grad_()
-                (d_flow,) = torch.autograd.grad(_warp(img.detach(), f), f, g)
+                (d_flow,) = torch.autograd.grad(
+                    _warp(img.detach(), f, y_offset), f, g)
         if ctx.needs_input_grad[0]:
-            d_img = _warp_img_grad(img, flow, g)
-        return d_img, d_flow
+            d_img = _warp_img_grad(img, flow, g, y_offset)
+        return d_img, d_flow, None
 
 
 def backward_warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
@@ -192,3 +198,20 @@ def backward_warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
       j + flow_x]``, border-clamped and bilinearly interpolated.
     """
     return _BackwardWarp.apply(img, flow)
+
+
+def backward_warp_window(img: torch.Tensor, flow: torch.Tensor,
+                         y_offset: int) -> torch.Tensor:
+    """:func:`backward_warp` sampling from a taller source window (port of
+    ``qpwcnet_tpu/ops/warp.py:backward_warp_window``).
+
+    img: (B, H_out + extra, W, C), typically an H shard plus the halo rows
+    exchanged from its neighbours (qpwcnet_torch.parallel.spatial_ops);
+    flow: (B, H_out, W, 2). ``out[b, y, x] = img[b, y + y_offset + flow_y,
+    x + flow_x]``, bilinear, clamped to the WINDOW's bounds: with
+    y_offset = halo this equals the global warp wherever |flow_y| <= halo
+    and the halo rows replicate the global border where the window
+    crosses it. Gradients as :func:`backward_warp`'s (its reproducible
+    scatter for d_img).
+    """
+    return _BackwardWarp.apply(img, flow, int(y_offset))

@@ -5,6 +5,11 @@ cast to the module's compute dtype per call, as the JAX modules do.
 Weights are stored in PyTorch's layouts: OIHW for convs, (C, 1, kh, kw)
 for depthwise convs and (I, O, kh, kw) for transpose convs
 (models/from_flax.py maps the Flax HWIO kernels).
+
+Under an H-sharded mesh (qpwcnet_torch.parallel) a conv's input is one
+shard's rows: H is padded with the neighbouring shards' rows, and with
+zeros only at the global ends, so each shard's output rows are the
+unsharded conv's (XLA's partitioning of the JAX model's convs).
 """
 
 from __future__ import annotations
@@ -14,6 +19,8 @@ from typing import Callable, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from qpwcnet_torch.parallel.transport import active_shards, halo_rows
 
 
 def same_pads(size: int, k: int, s: int) -> tuple[int, int]:
@@ -27,9 +34,22 @@ def same_pads(size: int, k: int, s: int) -> tuple[int, int]:
 
 def conv2d_same(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
                 groups: int = 1) -> torch.Tensor:
-    """NCHW conv with XLA 'SAME' padding; weight OIHW in x's dtype."""
+    """NCHW conv with XLA 'SAME' padding; weight OIHW in x's dtype.
+
+    Under an H-sharded mesh the H padding is that of the whole image
+    (stride 2 on an even H: (0, 1), one row of the next shard and none of
+    the previous one), filled with the neighbours' rows."""
     kh, kw = weight.shape[-2:]
-    pt, pb = same_pads(x.shape[2], kh, stride)
+    shards = active_shards()
+    if shards is None:
+        pt, pb = same_pads(x.shape[2], kh, stride)
+    else:
+        if x.shape[2] % stride:
+            raise ValueError(f"an H shard of {x.shape[2]} rows does not "
+                             f"split by the conv's stride {stride}")
+        pt, pb = same_pads(x.shape[2] * shards.n, kh, stride)
+        x = halo_rows(x, 2, pt, pb)
+        pt = pb = 0
     pl, pr = same_pads(x.shape[3], kw, stride)
     if pt == pb and pl == pr:
         return F.conv2d(x, weight, stride=stride, padding=(pt, pl),
@@ -86,8 +106,17 @@ class QConvTranspose(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv_transpose2d(x.to(self.dtype), self.weight.to(self.dtype),
-                               stride=2, padding=1)
+        x = x.to(self.dtype)
+        shards = active_shards()
+        h = x.shape[2]
+        if shards is not None:
+            # output rows 2i - 1 + ky of input row i: a shard's outputs
+            # read one input row of each neighbour
+            x = halo_rows(x, 2, 1, 1)
+        y = F.conv_transpose2d(x, self.weight.to(self.dtype), stride=2,
+                               padding=1)
+        if shards is not None:
+            y = y.narrow(2, 2, 2 * h)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)[:, None, None]
         if self.act is not None:

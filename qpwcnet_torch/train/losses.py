@@ -23,6 +23,11 @@ import torch
 import torch.nn as nn
 
 from qpwcnet_torch.ops.resize import block_mean_downsample, resize_bilinear
+from qpwcnet_torch.parallel.transport import (
+    global_mean,
+    n_shards,
+    replicated,
+)
 
 # Modules whose kernels carry the Keras l2 regularizer (DownConv, UpConv).
 L2_MODULES = ("conv_a", "conv_aa", "conv_b", "conv_up")
@@ -39,15 +44,17 @@ def _huber(err: torch.Tensor, delta: float) -> torch.Tensor:
 
 def flow_loss_v2(flo_true: torch.Tensor, flo_pred: torch.Tensor,
                  delta: float = 0.1) -> torch.Tensor:
-    """FlowMseLossV2 for one scale."""
+    """FlowMseLossV2 for one scale. Under an H-sharded mesh both flows
+    are a shard's rows: the scale reads the image's H and the mean is
+    over the image's pixels."""
     th, tw = flo_true.shape[1], flo_true.shape[2]
     ph, pw = flo_pred.shape[1], flo_pred.shape[2]
     flow_scale = ph / th
-    loss_scale = 2.0 / (pw + ph)
+    loss_scale = 2.0 / (pw + ph * n_shards())
     true_down = flow_scale * block_mean_downsample(flo_true, th // ph,
                                                    tw // pw)
     err = loss_scale * true_down - loss_scale * flo_pred
-    return torch.mean(_huber(err, delta))
+    return global_mean(_huber(err, delta))
 
 
 def multiscale_flow_loss(flo_true: torch.Tensor,
@@ -78,8 +85,9 @@ def multiscale_interp_loss(img_true: torch.Tensor,
 
 
 def epe_error(flo_true: torch.Tensor, flo_pred: torch.Tensor) -> torch.Tensor:
-    """End-point error: mean L2 norm of the flow residual."""
-    return torch.mean(torch.linalg.vector_norm(flo_true - flo_pred, dim=-1))
+    """End-point error: mean L2 norm of the flow residual (over the
+    image's pixels under an H-sharded mesh)."""
+    return global_mean(torch.linalg.vector_norm(flo_true - flo_pred, dim=-1))
 
 
 def l2_regularization(model: nn.Module, gamma: float = 4e-6) -> torch.Tensor:
@@ -91,4 +99,5 @@ def l2_regularization(model: nn.Module, gamma: float = 4e-6) -> torch.Tensor:
     for name, module in model.named_modules():
         if name.rsplit(".", 1)[-1] in L2_MODULES:
             total = total + torch.sum(torch.square(module.weight.float()))
-    return gamma * total
+    # every process of a mesh's model axis computes it whole
+    return gamma * replicated(total)

@@ -13,6 +13,7 @@ from typing import Callable, Iterable, Optional, Sequence
 import torch
 import torch.nn as nn
 
+from qpwcnet_torch.parallel.mesh import reduce_active_grads
 from qpwcnet_torch.train.agc import adaptive_clip_grads, zero_nan_grads
 from qpwcnet_torch.train.losses import (
     epe_error,
@@ -25,7 +26,9 @@ from qpwcnet_torch.train.losses import (
 class GradientChain:
     """zero_nan_grads -> adaptive_clip_grads (when ``clip_factor`` is
     set) -> ``torch.optim.Adam(lr)`` (optax.adam's defaults: betas .9 /
-    .999, eps 1e-8) over all of ``model``'s parameters.
+    .999, eps 1e-8) over all of ``model``'s parameters; under a mesh of
+    several processes (``parallel.make_parallel_step``) the gradients are
+    first all-reduced over it.
 
     ``global_step`` counts the steps taken, JAX's ``TrainState.step``:
     :meth:`step` adds one, and a caller that replaces the chain mid-run
@@ -46,6 +49,7 @@ class GradientChain:
         self.adam.zero_grad(set_to_none=True)
 
     def step(self) -> None:
+        reduce_active_grads(self.model)
         zero_nan_grads(self.model)
         if self.clip_factor is not None:
             adaptive_clip_grads(self.model, self.clip_factor, self.eps,

@@ -162,7 +162,8 @@ def main() -> int:
 
         def call(lib):
             err = lib.qpw_cost_volume(prv.data_ptr(), nxt.data_ptr(),
-                                      out.data_ptr(), b, h, w, c, 1, stream)
+                                      out.data_ptr(), b, h, w, c, 0, 1,
+                                      stream)
             _build.check(err, "qpw_cost_volume")
 
         times = []

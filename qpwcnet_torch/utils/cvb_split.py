@@ -94,7 +94,7 @@ def main() -> int:
             def call(lib):
                 err = getattr(lib, entry)(
                     dacc.data_ptr(), src_map.data_ptr(), out.data_ptr(), b,
-                    h, w, c, 1, stream)
+                    h, w, c, 0, 1, stream)
                 _build.check(err, entry)
 
             times = []

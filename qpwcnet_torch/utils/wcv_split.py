@@ -33,7 +33,7 @@ from qpwcnet_torch.utils.cv_split import (_check, build, device_ms, flatten,
 GATHER = ("wcv_gather<TY, DG>(nb, buf, corner, wax, way, ch * CM_CC, W, C, "
           "vec);")
 COPY = ("cm_stage<TY, DG>(nb, pb, buf, ch * CM_CC, 0, Cfg::WIN, x0, y0, H, "
-        "W, C, vec); cp_async_commit();")
+        "W, C, vec, 0); cp_async_commit();")
 COMPUTES = ("full", "tiles 8x1", "tiles 4x3", "tiles 2x9")
 LEVELS = ((8, 224, 512, 32), (16, 128, 256, 32))
 

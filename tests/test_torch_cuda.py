@@ -26,11 +26,15 @@ from qpwcnet_torch.ops.cost_volume import (
     cost_volume_bwd_nxt_plain,
     cost_volume_bwd_prv_plain,
     cost_volume_plain,
+    cost_volume_plain_haloed,
 )
 from qpwcnet_torch.ops.cuda.cost_volume_kernel import (
     cost_volume_bwd_nxt_cuda,
+    cost_volume_bwd_nxt_haloed_cuda,
     cost_volume_bwd_prv_cuda,
+    cost_volume_bwd_prv_haloed_cuda,
     cost_volume_cuda,
+    cost_volume_haloed_cuda,
 )
 from qpwcnet_torch.ops.cuda.stem_kernel import (
     downconv_stage_cuda,
@@ -550,7 +554,9 @@ def test_cost_volume_function_grads_match_plain_autograd(dev):
     assert kernels.launch_counts() == {
         "cost_volume_cuda": 1, "downconv_stage_cuda": 0,
         "warp_cost_volume_cuda": 0, "cost_volume_bwd_prv_cuda": 1,
-        "cost_volume_bwd_nxt_cuda": 1, "upconv_stage_cuda": 0}
+        "cost_volume_bwd_nxt_cuda": 1, "upconv_stage_cuda": 0,
+        "cost_volume_haloed_cuda": 0, "cost_volume_bwd_prv_haloed_cuda": 0,
+        "cost_volume_bwd_nxt_haloed_cuda": 0}
     _assert_close(leaves[0].grad, leaves[2].grad)
     _assert_close(leaves[1].grad, leaves[3].grad)
 
@@ -799,3 +805,105 @@ def test_upconv_wrapper_validates_inputs(dev):
     with pytest.raises(ValueError):
         upconv_stage_cuda(wide, _rand(rng, (160, 32, 4, 4), dev),
                           _rand(rng, (32,), dev), torch.bfloat16)
+
+
+# ---- the haloed modes (the spatial H-sharded path's)
+
+def _halo_shards(x, n, r=4):
+    """The n H shards of x (B, H, W, C), each with r rows of its
+    neighbours above and below (zeros at the ends), folded shard-minor
+    into the batch: (B·n, H/n + 2r, W, C)."""
+    b, h, w, c = x.shape
+    pad = torch.nn.functional.pad(x, (0, 0, 0, 0, r, r))
+    hl = h // n
+    return torch.stack([pad[:, s * hl:s * hl + hl + 2 * r]
+                        for s in range(n)], 1).flatten(0, 1).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 13, 37, 20), (1, 9, 21, 72),
+                                   (3, 4, 19, 32), (2, 16, 40, 256)])
+def test_haloed_kernels_match_plain(dev, dtype, shape):
+    """K1, K4a and K4b in their haloed modes against the haloed plain
+    versions: C % 8 != 0, three channel groups, fewer rows than r, and
+    C = 256's split groups."""
+    b, h, w, c = shape
+    rng = np.random.RandomState(sum(shape))
+    prv = _rand(rng, shape, dev, dtype)
+    nxt_h = _rand(rng, (b, h + 8, w, c), dev, dtype)
+    dacc = _rand(rng, (b, h, w, 81), dev, dtype)
+    kernels.reset_launch_counts()
+    _assert_close(cost_volume_haloed_cuda(prv, nxt_h),
+                  cost_volume_plain_haloed(prv, nxt_h))
+    _assert_close(cost_volume_bwd_prv_haloed_cuda(dacc, nxt_h),
+                  cost_volume_bwd_prv_plain(dacc, nxt_h, True))
+    _assert_close(cost_volume_bwd_nxt_haloed_cuda(dacc, prv),
+                  cost_volume_bwd_nxt_plain(dacc, prv, True))
+    counts = kernels.launch_counts()
+    assert (counts["cost_volume_haloed_cuda"],
+            counts["cost_volume_bwd_prv_haloed_cuda"],
+            counts["cost_volume_bwd_nxt_haloed_cuda"],
+            counts["cost_volume_cuda"]) == (1, 1, 1, 0), counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [2, 4])
+def test_haloed_shards_equal_the_whole(dev, dtype, n):
+    """Each shard's haloed K1, concatenated, is the unhaloed K1 on the
+    whole map bit for bit (the same products in the same order); the
+    shards' K4a outputs concatenated and their K4b outputs with the halo
+    rows added back to their owners equal the whole map's K4a / K4b."""
+    rng = np.random.RandomState(n)
+    b, h, w, c, r = 2, 32, 40, 32, 4
+    prv = _rand(rng, (b, h, w, c), dev, dtype)
+    nxt = _rand(rng, (b, h, w, c), dev, dtype)
+    dacc = _rand(rng, (b, h, w, 81), dev, dtype)
+    hl = h // n
+
+    def fold(x):
+        return x.reshape(b * n, hl, *x.shape[2:])
+
+    def unfold(x):
+        return x.reshape(b, n * x.shape[1], *x.shape[2:])
+
+    got = unfold(cost_volume_haloed_cuda(fold(prv), _halo_shards(nxt, n)))
+    assert torch.equal(got, cost_volume_cuda(prv, nxt))
+    _assert_close(
+        unfold(cost_volume_bwd_prv_haloed_cuda(fold(dacc),
+                                               _halo_shards(nxt, n))),
+        cost_volume_bwd_prv_cuda(dacc, nxt))
+    parts = cost_volume_bwd_nxt_haloed_cuda(fold(dacc), fold(prv)).float()
+    whole = torch.zeros((b, h + 2 * r, w, c), device=dev)
+    parts = parts.unflatten(0, (b, n))
+    for s in range(n):
+        whole[:, s * hl:s * hl + hl + 2 * r] += parts[:, s]
+    _assert_close(whole[:, r:-r].to(dtype),
+                  cost_volume_bwd_nxt_cuda(dacc, prv))
+
+
+@pytest.mark.cuda
+def test_haloed_cost_volume_function_grads(dev):
+    rng = np.random.RandomState(6)
+    prv = _rand(rng, (2, 11, 19, 24), dev)
+    nxt_h = _rand(rng, (2, 19, 19, 24), dev)
+    g = _rand(rng, (2, 11, 19, 81), dev)
+    leaves = [t.clone().requires_grad_() for t in (prv, nxt_h, prv, nxt_h)]
+    CostVolumeFunction.apply(leaves[0], leaves[1], 4, True).backward(g)
+    cost_volume_plain_haloed(leaves[2], leaves[3]).backward(g)
+    _assert_close(leaves[0].grad, leaves[2].grad)
+    _assert_close(leaves[1].grad, leaves[3].grad)
+
+
+@pytest.mark.cuda
+def test_haloed_wrappers_validate_shapes(dev):
+    rng = np.random.RandomState(7)
+    prv = _rand(rng, (1, 8, 16, 16), dev)
+    dacc = _rand(rng, (1, 8, 16, 81), dev)
+    with pytest.raises(ValueError):
+        cost_volume_haloed_cuda(prv, prv)
+    with pytest.raises(ValueError):
+        cost_volume_bwd_prv_haloed_cuda(dacc, prv)
+    with pytest.raises(ValueError):
+        cost_volume_bwd_nxt_haloed_cuda(dacc, prv[:, :7].contiguous())
