@@ -8,10 +8,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
   1. device: the card's name and power limit; TF32 off.
   2. build: nvcc-builds qpwcnet_torch/csrc/*.cu (sm_90a, one nvcc per
      source, all at once) and loads the library; K1's, K2's, K3's, K4a's,
-     K4b's and K5's bf16 kernels must issue tensor-core instructions (HMMA
-     in cuobjdump's SASS), every instantiation (the wide stages' implicit
-     GEMM, csrc/conv_gemm.cuh, too), and K1's, K3's, K4a's and K4b's
-     float32 bodies and the GEMM's none.
+     K4b's and K5's bf16 mma.sync kernels must issue tensor-core
+     instructions (HMMA in cuobjdump's SASS), every instantiation, and
+     K1's, K3's, K4a's and K4b's float32 bodies none; every bf16
+     instantiation of the wide stages' implicit GEMM (csrc/conv_gemm.cuh)
+     must issue wgmma (HGMMA) and TMA loads (UTMALDG) and no HMMA, its
+     float32 body none of them.
   3. kernel equality: each CUDA kernel against its plain PyTorch version
      at the headline shapes (448x1024 input, batch 8, so 2B = 16 through
      the encoder), at batch 1 (the infer app's) and at one shape that is
@@ -21,7 +23,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      two chunks, each with flows inside the ±4 window and beyond it; K2
      also at a ragged Co 32 shape, and at encoder stages 2-4 (Co 64, 128,
      256) at the headline, the train step's 2B = 32 at 256x512, batch 1
-     and a ragged shape); the cost-volume backward
+     and a ragged shape, those also against the GEMM's own decomposition
+     in plain PyTorch, ops/cuda/conv_gemm.py); the cost-volume backward
      kernels K4a and K4b at the five cost-volume levels of the training
      configuration (256x512, batch 16), at batch 1, at odd shapes (C % 8
      != 0 and W no multiple of 16; C = 256 in split channel groups), and
@@ -30,8 +33,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
   3c. K5, the fused decoder UpConv stage, against its plain version at the
      decoder's four stages of the interpolator's training step, of the
      flow headline and of batch 1 (stages 0-1 also of the flow train
-     step), and at odd shapes, float32 and bf16; the trainable K5's
-     gradients against autograd of the plain version.
+     step), and at odd shapes, float32 and bf16 (stages 0-1 also against
+     the GEMM's own decomposition); the trainable K5's gradients against
+     autograd of the plain version.
   3d. the haloed modes of K1, K4a and K4b (nxt and dnxt of H + 8 rows:
      the spatial path's) against their haloed plain versions in float32
      and bf16 at the spatial forward's five levels (448x1024 b8 in 2 H
@@ -119,7 +123,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      the interpolator's forward and pretraining step, the exact flow
      forward) and K2's (stem_stages 0 beside 2: the exact flow forward);
      the wide stages' (K2 at stages 2-4 and K5 at stages 0-1 of the
-     headline and the training steps); the fully fused configuration's
+     headline and the training steps: one call, chained, each against the
+     bound and cuDNN, and each device kernel's time: the weights'
+     rounding, then the GEMM of each conv); the fully fused configuration's
      in-model effect (stem_stages 2 beside 5, upconv_stages 2 beside 4,
      two rounds of turns, and the card's busy time by torch.profiler: the
      exact flow forward, the flow train step, the pretraining step); the
@@ -230,7 +236,7 @@ UPCONV_WIDE_SHAPES = [((16, 8, 16, 256), 128), ((16, 16, 32, 256), 64),
 # K2's shapes, (B, H, W, Ci) -> Co: encoder stages 0 and 1 of the flow
 # headline (2B = 16 at 448x1024) and of batch 1, one shape that is no
 # tile multiple at each of Co 16 and 32, and stage 2 of the headline
-# (Co 64: bf16's fused tile, float32's implicit GEMM)
+# (Co 64: the implicit GEMM, as stages 3-4)
 STEM_SHAPES = [((2 * B, H, W, 3), 16), ((2 * B, H // 2, W // 2, 16), 32),
                ((2, H, W, 3), 16), ((2, H // 2, W // 2, 16), 32),
                ((2, 70, 90, 3), 16), ((3, 38, 70, 16), 32),
@@ -446,10 +452,13 @@ def phase_build():
 
 
 def sass_tensor_cores(lib_path, bin_dir) -> None:
-    """Count tensor-core (HMMA) instructions in K1's, K2's, K3's, K4a's,
-    K4b's and K5's kernels in the built library's SASS: each bf16
-    instantiation must issue them, and K1's, K3's, K4a's and K4b's float32
-    bodies (CUDA-core FMAs) none."""
+    """Count tensor-core instructions in K1's, K2's, K3's, K4a's, K4b's
+    and K5's kernels in the built library's SASS: each bf16 mma.sync
+    instantiation must issue HMMA, and K1's, K3's, K4a's and K4b's float32
+    bodies (CUDA-core FMAs) none; each bf16 instantiation of the wide
+    stages' GEMM must issue wgmma (HGMMA) and TMA loads (UTMALDG) and no
+    HMMA, its float32 body none of the three, and the old mma.sync GEMM
+    (conv_gemm_mma_kernel) must be gone."""
     import re
 
     cuobjdump = bin_dir / "cuobjdump"
@@ -458,13 +467,17 @@ def sass_tensor_cores(lib_path, bin_dir) -> None:
         return
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
                           capture_output=True, text=True, check=True).stdout
-    counts, name = {}, None
+    counts, ops, name = {}, {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
             counts[name] = 0
-        elif name and "HMMA" in line:
-            counts[name] += 1
+            ops[name] = dict(HMMA=0, HGMMA=0, UTMALDG=0)
+        elif name:
+            for op in ops[name]:
+                if op in line:
+                    ops[name][op] += 1
+            counts[name] = ops[name]["HMMA"]
     mma, f32, stem, stem32, cv, cv32 = {}, {}, {}, {}, {}, {}
     bwd, bwd32, wcv, wcv32, gemm, gemm32 = {}, {}, {}, {}, {}, {}
     for name, n in counts.items():
@@ -496,19 +509,21 @@ def sass_tensor_cores(lib_path, bin_dir) -> None:
         m = re.search(r"stem_kernelILi(\d+)E", name)
         if m:
             stem32[f"Co {m[1]}"] = n
-        m = re.search(r"conv_gemm_mma_kernelILi(\d)ELi(\d+)ELi(\d+)E", name)
+        m = re.search(r"conv_gemm_wgmma_kernelILi(\d)ELi(\d+)ELi(\d+)E",
+                      name)
         if m:
-            gemm[f"{GEMM_MODES[m[1]]} {m[2]}x{m[3]}"] = n
+            gemm[f"{GEMM_MODES[m[1]]} {m[2]}x{m[3]}"] = ops[name]
         m = re.search(r"conv_gemm_f32_kernelILi(\d)E", name)
         if m:
-            gemm32[GEMM_MODES[m[1]]] = n
+            gemm32[GEMM_MODES[m[1]]] = ops[name]
     log(f"  SASS HMMA count: K1 bf16 {cv}, K1 float32 {cv32}")
     log(f"  SASS HMMA count: K3 bf16 {wcv}, K3 float32 {wcv32}")
     log(f"  SASS HMMA count: K4 bf16 {bwd}, K4 float32 {bwd32}")
     log(f"  SASS HMMA count: K5 bf16 {mma}, K5 float32 {f32}")
     log(f"  SASS HMMA count: K2 bf16 {stem}, K2 float32 {stem32}")
-    log(f"  SASS HMMA count: the wide stages' GEMM (K2 stages 3-4: conv "
-        f"s2, s1; K5 stages 0-1: up) bf16 {gemm}, float32 {gemm32}")
+    log(f"  SASS HGMMA / UTMALDG / HMMA count: the wide stages' GEMM (K2 "
+        f"stages 2-4: conv s2, s1; K5 stages 0-1: up; BM x BN) bf16 {gemm},"
+        f" float32 {gemm32}")
     check(len(cv) == 3 and all(n > 0 for n in cv.values()),
           f"K1's bf16 body issues no HMMA: {cv}")
     check(len(cv32) == 1 and all(n == 0 for n in cv32.values()),
@@ -524,12 +539,17 @@ def sass_tensor_cores(lib_path, bin_dir) -> None:
           f"K4a's and K4b's float32 body is not the CUDA-core one: {bwd32}")
     check(len(mma) == 4 and all(n > 0 for n in mma.values()),
           f"K5's bf16 body issues no HMMA: {mma}")
-    check(len(stem) == 6 and all(n > 0 for n in stem.values()),
+    check(len(stem) == 4 and all(n > 0 for n in stem.values()),
           f"K2's bf16 body issues no HMMA: {stem}")
-    check(len(gemm) == 8 and all(n > 0 for n in gemm.values()),
-          f"the wide stages' bf16 GEMM issues no HMMA: {gemm}")
-    check(len(gemm32) == 3 and all(n == 0 for n in gemm32.values()),
+    check(len(gemm) == 9 and all(
+        o["HGMMA"] > 0 and o["UTMALDG"] > 0 and o["HMMA"] == 0
+        for o in gemm.values()),
+          f"the wide stages' bf16 GEMM is not wgmma fed by TMA: {gemm}")
+    check(len(gemm32) == 3 and all(
+        not any(o.values()) for o in gemm32.values()),
           f"the wide stages' float32 GEMM is not the CUDA-core one: {gemm32}")
+    old = [n for n in counts if "conv_gemm_mma_kernel" in n]
+    check(not old, f"the mma.sync GEMM is still in the library: {old}")
 
 
 def phase_kernels(dev):
@@ -537,8 +557,9 @@ def phase_kernels(dev):
 
     from qpwcnet_torch.ops.cost_volume import cost_volume_plain
     from qpwcnet_torch.ops.cuda.cost_volume_kernel import cost_volume_cuda
+    from qpwcnet_torch.ops.cuda.conv_gemm import downconv_stage_gemm_plain
     from qpwcnet_torch.ops.cuda.stem_kernel import (
-        downconv_stage_cuda, downconv_stage_plain)
+        STEM_GEMM_CHANNELS, downconv_stage_cuda, downconv_stage_plain)
     from qpwcnet_torch.ops.cuda.warp_cv_kernel import (
         warp_cost_volume_cuda, warp_cost_volume_plain)
 
@@ -596,12 +617,18 @@ def phase_kernels(dev):
             # later convs' sums across rounding points too: 4 ulps
             got = downconv_stage_cuda(x, params, dtype)
             want = downconv_stage_plain(x, params, dtype)
+            rel_k2 = rel if dtype == torch.float32 else 4 * REL_BF16
             compare(f"K2 downconv_stage {dn} ({b},{h},{w},{cin})->{cout}",
-                    got, want,
-                    rel if dtype == torch.float32 else 4 * REL_BF16,
-                    errs, "downconv_stage")
+                    got, want, rel_k2, errs, "downconv_stage")
             if dtype == torch.bfloat16:
                 log(f"    {bf16_ulps(got, want)}")
+            if cout in STEM_GEMM_CHANNELS[dtype]:
+                # the GEMM's own decomposition (conv_gemm.py), in plain
+                # PyTorch: the same boxes, views and weight layout
+                want = downconv_stage_gemm_plain(x, params, dtype)
+                compare(f"K2 downconv_stage {dn} ({b},{h},{w},{cin})->"
+                        f"{cout} vs conv_gemm_plain", got, want, rel_k2,
+                        errs, "downconv_stage")
             del got, want
         torch.cuda.empty_cache()
     return errs
@@ -700,8 +727,10 @@ def phase_kernels_upconv(dev, errs):
     import torch
 
     from qpwcnet_torch.ops import cuda as kernels
+    from qpwcnet_torch.ops.cuda.conv_gemm import upconv_stage_gemm_plain
     from qpwcnet_torch.ops.cuda.upconv_kernel import (
-        upconv_stage_cuda, upconv_stage_plain, upconv_stage_trainable)
+        UPCONV_GEMM_CHANNELS, upconv_stage_cuda, upconv_stage_plain,
+        upconv_stage_trainable)
 
     log("== phase 3c: K5 upconv_stage against its plain version, tolerance "
         f"{REL_F32:g} (f32) / {2 * REL_BF16:g} (bf16: two ulps, since a "
@@ -720,6 +749,11 @@ def phase_kernels_upconv(dev, errs):
                     errs, "upconv_stage")
             if dtype == torch.bfloat16:
                 log(f"    {bf16_ulps(got, want)}")
+            if co in UPCONV_GEMM_CHANNELS:
+                compare(f"K5 upconv_stage {dn} {shape}->{co} vs "
+                        "conv_gemm_plain", got,
+                        upconv_stage_gemm_plain(x, w, b, dtype), rel, errs,
+                        "upconv_stage")
         torch.cuda.empty_cache()
 
     # The trainable stage (K5 forward, the unfused composition's
@@ -2143,6 +2177,7 @@ def phase_times(dev, x, batch, ibatch):
     from qpwcnet_torch.ops.cuda.warp_cv_kernel import (
         warp_cost_volume_cuda, warp_cost_volume_plain)
     from qpwcnet_torch.quantize.qlayers import same_pads
+    from qpwcnet_torch.utils.gemm_times import kernel_ms
 
     log(f"== phase 5: times (bf16, CUDA events, median of {N_TIMED} after "
         "warm-up; order plain, kernel, kernel, plain, reported the mean "
@@ -2196,12 +2231,14 @@ def phase_times(dev, x, batch, ibatch):
             f"{r['bound_ms']:.4f} ms")
         # K2 at the headline's five encoder stages (the kernels line sums
         # all five, the fully fused forward's; stages 0-1 are logged
-        # apart), then stages 3 and 4 at the train step's shapes
+        # apart), then stages 3, 4 and 2 at the train step's shapes; the
+        # wide stages (2-4, the GEMM) with each device kernel's time
         beats, first_two = [], 0.0
         for n, ((b, h, w, cin), cout) in enumerate(
                 (STEM_SHAPES[0], STEM_SHAPES[1], STEM_SHAPES[6],
                  STEM_WIDE_SHAPES[3], STEM_WIDE_SHAPES[4],
-                 STEM_WIDE_SHAPES[5], STEM_WIDE_SHAPES[6])):
+                 STEM_WIDE_SHAPES[5], STEM_WIDE_SHAPES[6],
+                 STEM_WIDE_SHAPES[0])):
             xs = rand((b, h, w, cin), scale=0.5)
             params = [(rand((cout, ci, 3, 3), torch.float32,
                             (9 * ci) ** -0.5),
@@ -2226,10 +2263,20 @@ def phase_times(dev, x, batch, ibatch):
             kc = time_chain_ms(lambda: downconv_stage_cuda(xs, params, bf16))
             lc = time_chain_ms(cudnn_convs)
             log(f"    {tag}: one call {nbytes / (k * 1e-3) / 1e9:.1f} GB/s "
-                f"achieved, kernel / cuDNN x{k / lib:.2f}; chained x20 "
-                f"(card time where the host keeps up): kernel {kc:.4f} ms, "
-                f"x{kc / max(bnd):.1f} the bound, "
-                f"{nbytes / (kc * 1e-3) / 1e9:.1f} GB/s | cuDNN {lc:.4f} ms")
+                f"achieved, x{k / max(bnd):.1f} the bound, kernel / cuDNN "
+                f"x{k / lib:.2f}; chained x20 (card time where the host "
+                f"keeps up): kernel {kc:.4f} ms, x{kc / max(bnd):.1f} the "
+                f"bound, {nbytes / (kc * 1e-3) / 1e9:.1f} GB/s | cuDNN "
+                f"{lc:.4f} ms, kernel / cuDNN x{kc / lc:.2f}")
+            if n >= 2:
+                # prep_w33, then conv_a (mode 0) and conv_aa + conv_b
+                # (mode 1, two launches)
+                parts = kernel_ms(
+                    lambda: downconv_stage_cuda(xs, params, bf16))
+                log(f"    {tag}: device ms " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in parts.items())
+                    + f"; sum {sum(parts.values()):.4f} (x"
+                    f"{sum(parts.values()) / max(bnd):.1f} the bound)")
             if n < 5:
                 totals.add("downconv_stage", k, p, bnd, lib)
                 beats.append(k < p and k < lib)
@@ -2352,7 +2399,13 @@ def phase_times(dev, x, batch, ibatch):
             log(f"    K5 {shape}->{co} chained x20 (card time where the host"
                 f" keeps up): kernel {kc:.4f} ms, x{kc / max(bnd):.1f} the "
                 f"bound, {upconv_bytes(*shape, co) / (kc * 1e-3) / 1e9:.1f} "
-                f"GB/s | cuDNN {lc:.4f} ms")
+                f"GB/s | cuDNN {lc:.4f} ms, kernel / cuDNN x{kc / lc:.2f}")
+            if n >= 6:
+                parts = kernel_ms(lambda: upconv_stage_cuda(xs, wt, bi, bf16))
+                log(f"    K5 {shape}->{co}: device ms " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in parts.items())
+                    + f"; sum {sum(parts.values()):.4f} (x"
+                    f"{sum(parts.values()) / max(bnd):.1f} the bound)")
             beats_plain.append(k < p)
             if shape[0] == 16:
                 beats_lib.append(k <= lib)

@@ -52,25 +52,26 @@
 //    instructions (common.cuh:mish2), which round as the float path does.
 //  - The weights are rounded to bf16 into shared memory as [tap][co][ci]
 //    (ci contiguous: B's column-major fragment). The grid is persistent:
-//    at CO 16 and 32 each block stages all three convs' weights once and
-//    keeps them; at CO 64 (83 KB a conv) a block stages each conv's before
-//    it runs. A block copies its next tile's input while it computes
-//    conv_aa and conv_b of the current one.
+//    each block stages all three convs' weights once and keeps them. A
+//    block copies its next tile's input while it computes conv_aa and
+//    conv_b of the current one.
 //  - Tiles: 16 x 32 outputs at CO 16 from RGB (2 blocks an SM), 16 x 16 at
-//    CO 32 and 8 x 16 at CO 64 (one block an SM, 16 warps), as shared
-//    memory allows.
+//    CO 32 (one block an SM, 16 warps), as shared memory allows.
 // float32 body (stem_kernel): CUDA-core FMAs, kept so that float32 stays
 // equal to the plain version within 1e-5 (TF32 would not): a 16 x 16
 // tile, one thread all CO sums of a position, the intermediates
 // channel-major.
 //
-// Wide stages (bf16 CO 128 and 256, encoder stages 3-4; float32 CO 64,
-// 128 and 256): one 256 -> 256 conv's bf16 weights are 1.2 MB, five
-// times a block's shared memory, and the two intermediates and the
-// stride-2 input of even a 4 x 4 output tile take 131 KB, so the fused
-// tile would recompute conv_a on 4x and conv_aa on 2.25x the outputs.
-// These stages run one implicit GEMM a conv instead (conv_gemm.cuh), the
-// weights streamed through shared memory in 32-channel slices of a tap:
+// Wide stages (CO 64, 128 and 256, encoder stages 2-4, both dtypes): one
+// 256 -> 256 conv's bf16 weights are 1.2 MB, five times a block's shared
+// memory, and the two intermediates and the stride-2 input of even a
+// 4 x 4 output tile take 131 KB, so the fused tile would recompute conv_a
+// on 4x and conv_aa on 2.25x the outputs; at CO 64 the fused tile had to
+// restage each conv's 83 KB of weights for every 8 x 16 outputs, and
+// took 2.4x the GEMM's chained time at the headline's stage 2
+// (PERF.md). These stages run one implicit GEMM a conv
+// instead (conv_gemm.cuh), the weights streamed through shared memory in
+// channel slices of a tap:
 // prep_w33 rounds the three convs' weights into the GEMM's layout, then
 // conv_a writes its output into `out`, conv_aa reads it into the
 // wrapper's scratch `tmp`, and conv_b reads that back into `out`. The
@@ -245,11 +246,10 @@ constexpr int SM_SMEM_MAX = 232448;  // 227 KB a block (sm_90)
 template <int CO, bool PACKED>
 struct StemCfg {
   static constexpr bool RGB16 = CO == 16 && PACKED;
-  static constexpr int TH = CO == 64 ? 8 : 16;      // output rows of a tile
+  static constexpr int TH = 16;                     // output rows of a tile
   static constexpr int TW = RGB16 ? 32 : 16;        // output columns
   static constexpr int NW = RGB16 ? 8 : 16;         // warps
   static constexpr int MINB = RGB16 ? 2 : 1;        // blocks an SM
-  static constexpr bool RESIDENT = CO != 64;        // all weights kept
   static constexpr int PS = CO + 8;                 // A, B pixel stride
   static constexpr int AW = TW + 4, NA = (TH + 4) * AW;
   static constexpr int BW = TW + 2, NB = (TH + 2) * BW;
@@ -264,8 +264,7 @@ struct StemCfg {
     return PACKED ? 3 * CO * 24 : 9 * CO * (cip + 8);
   }
   __host__ __device__ static constexpr int w_el(int cip) {
-    return RESIDENT ? wa_el(cip) + 2 * WS
-                    : (wa_el(cip) > WS ? wa_el(cip) : WS);
+    return wa_el(cip) + 2 * WS;
   }
   static size_t smem(int cip) {
     return 2 * ((size_t)(NA + NB) * PS + in_el(cip) + w_el(cip));
@@ -459,8 +458,8 @@ stem_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ w1,
   bf16* sb = sa + C::NA * PS;                    // B [NB][PS]
   bf16* xs = sb + C::NB * PS;                    // the staged input
   bf16* wa = xs + C::in_el(cip);                 // conv_a's weights
-  bf16* waa = C::RESIDENT ? wa + C::wa_el(cip) : wa;
-  bf16* wb = C::RESIDENT ? waa + C::WS : wa;
+  bf16* waa = wa + C::wa_el(cip);
+  bf16* wb = waa + C::WS;
   const int Ho = H / 2, Wo = W / 2;
 
   auto tile = [&](int t, int& b, int& oy0, int& ox0) {
@@ -468,25 +467,19 @@ stem_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ w1,
     oy0 = (t / tiles_w % tiles_h) * C::TH;
     b = t / (tiles_w * tiles_h);
   };
-  auto stage_wa = [&]() {
-    if constexpr (PACKED)
-      stage_w_packed<CO, NT>(wa, w1, Ci);
-    else
-      stage_w33<CO, NT>(wa, w1, Ci, cip);
-  };
 
   int t = blockIdx.x, b = 0, oy0 = 0, ox0 = 0;
   tile(t, b, oy0, ox0);
   stage_input<CO, PACKED, NT>(xs, x, b, oy0, ox0, H, W, Ci, cip, vec);
   cp_async_commit();
-  if constexpr (C::RESIDENT) {
-    stage_wa();
-    stage_w33<CO, NT>(waa, w2, CO, CO);
-    stage_w33<CO, NT>(wb, w3, CO, CO);
-  }
+  if constexpr (PACKED)
+    stage_w_packed<CO, NT>(wa, w1, Ci);
+  else
+    stage_w33<CO, NT>(wa, w1, Ci, cip);
+  stage_w33<CO, NT>(waa, w2, CO, CO);
+  stage_w33<CO, NT>(wb, w3, CO, CO);
 
   for (; t < n_tiles; t += gridDim.x) {
-    if constexpr (!C::RESIDENT) stage_wa();
     cp_async_wait_all();
     __syncthreads();  // the input and the weights are in place
 
@@ -523,10 +516,6 @@ stem_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ w1,
       stage_input<CO, PACKED, NT>(xs, x, b, oy0, ox0, H, W, Ci, cip, vec);
     }
     cp_async_commit();
-    if constexpr (!C::RESIDENT) {
-      stage_w33<CO, NT>(waa, w2, CO, CO);
-      __syncthreads();
-    }
 
     // conv_aa: A -> B, over the tile + 1 halo.
     conv_mma<CO, 9, C::NW>(
@@ -540,10 +529,6 @@ stem_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ w1,
           store2(sb + q * PS + n, v, in);
         });
     __syncthreads();  // B is complete
-    if constexpr (!C::RESIDENT) {
-      stage_w33<CO, NT>(wb, w3, CO, CO);
-      __syncthreads();
-    }
 
     // conv_b: B -> the output tile.
     conv_mma<CO, 9, C::NW>(
@@ -557,7 +542,6 @@ stem_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ w1,
             *reinterpret_cast<__nv_bfloat162*>(
                 out + (((size_t)cb * Ho + oy) * Wo + ox) * CO + n) = v;
         });
-    if constexpr (!C::RESIDENT) __syncthreads();  // the weights are read
   }
 }
 
@@ -567,7 +551,7 @@ stem_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ w1,
 // known yet).
 namespace {
 constexpr int SM_MAX_DEV = 16, SM_MAX_K = 3;
-std::atomic<int> sm_known[3][2][SM_MAX_DEV][SM_MAX_K];
+std::atomic<int> sm_known[2][2][SM_MAX_DEV][SM_MAX_K];
 }  // namespace
 
 template <int CO, bool PACKED>
@@ -586,7 +570,7 @@ cudaError_t launch_stem_mma(const void* x, const void* w1, const void* b1,
   const int k = cip / 16;
   std::atomic<int>* known =
       dev < SM_MAX_DEV && k < SM_MAX_K
-          ? &sm_known[CO == 16 ? 0 : CO == 32 ? 1 : 2][PACKED][dev][k]
+          ? &sm_known[CO == 16 ? 0 : 1][PACKED][dev][k]
           : nullptr;
   int resident = known ? known->load(std::memory_order_relaxed) - 1 : -1;
   if (resident < 0) {
@@ -671,7 +655,8 @@ __global__ void prep_w33(const float* __restrict__ w1,
 }
 
 // A wide stage: wbuf holds 9 CO (cip + 2 CO) elements of T (cip = Cin
-// rounded up to GEMM_K), tmp one (B, H/2, W/2, CO) map.
+// rounded up to GEMM_K), tmp one (B, H/2, W/2, CO) map. bf16 GEMM tiles
+// are 128 channels wide at CO 128 and 256, 64 at CO 64.
 template <typename T>
 cudaError_t launch_stem_gemm(const void* x, const void* w1, const void* b1,
                              const void* w2, const void* b2, const void* w3,
@@ -697,7 +682,12 @@ cudaError_t launch_stem_gemm(const void* x, const void* w1, const void* b1,
                        Ho, Wo, CO, CO, CO, Ho, Wo, (int)M};
   const ConvArgs ab = {tmp, wp + 9 * CO * (cip + CO), static_cast<F>(b3),
                        out, Ho, Wo, CO, CO, CO, Ho, Wo, (int)M};
-  // bf16: CO 128 or 256, 128 channels a block
+  if (CO % 128) {
+    err = launch_conv_gemm<CONV_S2, T, 64>(a, stream);
+    if (err == cudaSuccess) err = launch_conv_gemm<CONV_S1, T, 64>(aa, stream);
+    if (err == cudaSuccess) err = launch_conv_gemm<CONV_S1, T, 64>(ab, stream);
+    return err;
+  }
   err = launch_conv_gemm<CONV_S2, T, 128>(a, stream);
   if (err == cudaSuccess) err = launch_conv_gemm<CONV_S1, T, 128>(aa, stream);
   if (err == cudaSuccess) err = launch_conv_gemm<CONV_S1, T, 128>(ab, stream);
@@ -733,9 +723,6 @@ extern "C" int qpw_downconv_stage(const void* x, const void* w1,
                                      Cin, s);
   if (dtype == 1 && Cout == 32)
     return qpw::launch_stem_bf16<32>(x, w1, b1, w2, b2, w3, b3, out, B, H, W,
-                                     Cin, s);
-  if (dtype == 1 && Cout == 64)
-    return qpw::launch_stem_bf16<64>(x, w1, b1, w2, b2, w3, b3, out, B, H, W,
                                      Cin, s);
   return cudaErrorInvalidValue;
 }

@@ -69,10 +69,11 @@
 // Wide stages (CO 64 and 128 at Ci 256, decoder stages 0-1, both
 // dtypes): the resident bf16 weights would be 0.5-1.1 MB, and one lane's
 // CO sums of 4 positions no longer fit in registers, so these stages run
-// the implicit GEMM of conv_gemm.cuh, one output phase a grid z, the 4
-// taps it reads (K = 4 x Ci) streamed through shared memory: prep_wt
-// rounds the weight into the GEMM's per-phase layout in the wrapper's
-// scratch, then one GEMM launch computes and writes every phase.
+// the implicit GEMM of conv_gemm.cuh, the 4 taps a phase reads (K = 4 x
+// Ci) streamed through shared memory, the tiles of all four phases in one
+// persistent launch: prep_wt rounds the weight into the GEMM's per-phase
+// layout in the wrapper's scratch, then one GEMM launch computes and
+// writes every phase.
 #include <stdint.h>
 
 #include <cooperative_groups.h>

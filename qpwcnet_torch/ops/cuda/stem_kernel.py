@@ -22,26 +22,31 @@ are not needed.
 - bfloat16: an implicit GEMM per conv on the tensor cores (mma.sync
   m16n8k16, bf16 operands, float32 sums, ldmatrix operands), the input
   tile staged with cp.async and the intermediates in shared memory as
-  [y][x][c]; a persistent grid whose blocks keep the weights (Co 16, 32)
-  or stage each conv's (Co 64). Built for Co 16, 32 and 64; the staged
-  input tile caps Ci (``STEM_MAX_CI_BF16``) except for Ci <= 4, the RGB
-  input, whose three taps of a kernel row are one k16 step.
+  [y][x][c]; a persistent grid whose blocks keep the weights. Built for
+  Co 16 and 32; the staged input tile caps Ci (``STEM_MAX_CI_BF16``)
+  except for Ci <= 4, the RGB input, whose three taps of a kernel row are
+  one k16 step.
 - float32: CUDA-core multiply-adds (TF32 would break the 1e-5 equality
   with the plain version), one thread all Co sums of a position, built
   for Co 16 and 32.
-- The wide stages (bf16 Co 128 and 256, encoder stages 3-4; float32 Co
-  64, 128 and 256): one conv's weights outgrow a block's shared memory
-  (1.2 MB in bf16 at 256 -> 256), and a fused tile small enough to keep
-  both intermediates would recompute conv_a on 4x and conv_aa on 2.25x
-  its outputs. So each conv is one implicit GEMM launch
-  (``csrc/conv_gemm.cuh``: tensor cores in bf16, CUDA cores in float32)
-  with bias + Mish in its epilogue, the weights streamed through shared
-  memory in 32-channel slices of a tap, and the two intermediates in
-  device memory (a wrapper-allocated scratch map and the output itself;
-  at stage 4 they stay in L2). The weights are rounded into the GEMM's
-  layout by a small kernel first, in a second scratch buffer. One
-  wrapper call is one launch of K2, as the TPU's stage is one
-  ``pallas_call``; on the card it is four device kernels.
+- The wide stages (Co 64, 128 and 256, encoder stages 2-4, both
+  dtypes): one conv's weights outgrow a block's shared memory (1.2 MB in
+  bf16 at 256 -> 256), and a fused tile small enough to keep both
+  intermediates would recompute conv_a on 4x and conv_aa on 2.25x its
+  outputs (at Co 64 it restaged each conv's 83 KB of weights for every
+  tile). So each conv is one implicit GEMM launch (``csrc/conv_gemm.cuh``:
+  wgmma fed by TMA in bf16, CUDA cores in float32) with bias + Mish in
+  its epilogue, the weights streamed through shared memory in channel
+  slices of a tap, and the two intermediates in device memory (a
+  wrapper-allocated scratch map and the output itself; at stage 4 they
+  stay in L2). The weights are rounded into the GEMM's layout by a small
+  kernel first, in a second scratch buffer. One wrapper call is one
+  launch of K2, as the TPU's stage is one ``pallas_call``; on the card it
+  is four device kernels. The bf16 GEMM reads inputs of a multiple of 32
+  channels at a 16-byte-aligned address; for any other input the
+  wrapper first makes an aligned, channel-padded copy of x and pads
+  conv_a's weight with zeros to match (two more device kernels:
+  ``conv_gemm.tma_padded``).
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ from typing import Sequence
 import torch
 
 from qpwcnet_torch.ops.activations import mish
-from qpwcnet_torch.ops.cuda import _build
+from qpwcnet_torch.ops.cuda import _build, conv_gemm
 from qpwcnet_torch.quantize.qlayers import conv2d_same
 
 # Output channel counts each dtype is compiled for: every width of the
@@ -60,12 +65,12 @@ STEM_CHANNELS = {torch.float32: (16, 32, 64, 128, 256),
                  torch.bfloat16: (16, 32, 64, 128, 256)}
 # Of those, the widths run as one implicit GEMM a conv (csrc/conv_gemm.cuh).
 STEM_GEMM_CHANNELS = {torch.float32: (64, 128, 256),
-                      torch.bfloat16: (128, 256)}
+                      torch.bfloat16: (64, 128, 256)}
 # The largest Ci > 4 of the bf16 body by Co: the fused tile's staged
 # input, the two intermediates and the weights fill the block's 227 KB of
 # shared memory (csrc/stem.cu:StemCfg::smem); Ci <= 4 always fits. None:
 # the GEMM streams any Ci.
-STEM_MAX_CI_BF16 = {16: 32, 32: 16, 64: 32, 128: None, 256: None}
+STEM_MAX_CI_BF16 = {16: 32, 32: 16, 64: None, 128: None, 256: None}
 
 Params = Sequence[tuple[torch.Tensor, torch.Tensor]]
 
@@ -126,10 +131,14 @@ def downconv_stage_cuda(x: torch.Tensor, params: Params,
                                            3, 3), device=x.device)
         _build.require(bt, f"bias {k}", (c_out,), device=x.device)
         args += [wt, bt]
+    gemm = c_out in STEM_GEMM_CHANNELS[dtype]
+    if gemm and dtype == torch.bfloat16:
+        x, args[0] = conv_gemm.tma_input(x, args[0], 1)
+        c_in = x.shape[-1]
     out = torch.empty((b, h // 2, w // 2, c_out), dtype=dtype,
                       device=x.device)
     wbuf = tmp = None
-    if c_out in STEM_GEMM_CHANNELS[dtype]:
+    if gemm:
         # the three convs' weights in the GEMM's layout, and conv_aa's
         # output (conv_a's goes into `out`, which conv_b overwrites)
         wbuf = torch.empty(9 * c_out * (_build.gemm_cip(c_in) + 2 * c_out),

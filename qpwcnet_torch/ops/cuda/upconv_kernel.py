@@ -45,12 +45,16 @@ validity masks are not needed.
   dtypes): the resident bf16 weights would be 0.5-1.1 MB, two to five
   times a block's shared memory, and a lane's Co sums no longer fit in
   registers. They run the implicit GEMM of ``csrc/conv_gemm.cuh``
-  (tensor cores in bf16, CUDA cores in float32), one output phase a grid
-  z, M = input positions, N = Co, K = the phase's 4 taps x Ci streamed
-  through shared memory in 32-channel slices, bias + Mish in the
-  epilogue. A small kernel first rounds the weight into the GEMM's
-  per-phase layout, in a scratch buffer the wrapper allocates: two device
-  kernels a launch.
+  (wgmma fed by TMA in bf16, CUDA cores in float32), the four output
+  phases' tiles in one persistent launch, M = input positions, N = Co, K
+  = the phase's 4 taps x Ci streamed through shared memory in channel
+  slices, bias + Mish in the epilogue. A small kernel first rounds the
+  weight into the GEMM's per-phase layout, in a scratch buffer the
+  wrapper allocates: two device kernels a launch. The bf16 GEMM reads
+  inputs of a multiple of 32 channels at a 16-byte-aligned address; for
+  any other input the wrapper first makes an aligned, channel-padded copy
+  of x and pads the weight with zeros to match (two more device kernels:
+  ``conv_gemm.tma_padded``).
 """
 
 from __future__ import annotations
@@ -62,7 +66,7 @@ import torch.nn.functional as F
 
 from qpwcnet_torch.layout import nchw, nhwc
 from qpwcnet_torch.ops.activations import mish
-from qpwcnet_torch.ops.cuda import _build
+from qpwcnet_torch.ops.cuda import _build, conv_gemm
 
 # Output channel counts the kernel is compiled for: every stage of the
 # decoder (models/pwcnet.py:DECODER_FILTERS).
@@ -123,10 +127,13 @@ def upconv_stage_cuda(x: torch.Tensor, weight: torch.Tensor,
     wt, bt = weight.float(), bias.float()
     _build.require(wt, "weight", device=x.device)
     _build.require(bt, "bias", (c_out,), device=x.device)
+    gemm = c_out in UPCONV_GEMM_CHANNELS
+    if gemm and dtype == torch.bfloat16:
+        x, wt = conv_gemm.tma_input(x, wt, 0)
+        c_in = x.shape[-1]
     out = x.new_empty((b, 2 * h, 2 * w, c_out))
     # the wide stages' weights in the GEMM's layout: 4 phases x 4 taps
-    wbuf = (x.new_empty(16 * c_out * _build.gemm_cip(c_in))
-            if c_out in UPCONV_GEMM_CHANNELS else None)
+    wbuf = x.new_empty(16 * c_out * _build.gemm_cip(c_in)) if gemm else None
     lib = _build.library()
     with _build.on_device(x.device):
         err = lib.qpw_upconv_stage(

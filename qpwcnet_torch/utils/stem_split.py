@@ -9,9 +9,11 @@ without both ("neither": the input staging, the epilogue's rounding and
 stores, the barriers), each into its own library under
 ``build/qpwcnet_torch/stem_split/``, and prints one markdown row a shape:
 each variant's time of one call, chained (20 back-to-back calls between
-CUDA events after 3 warm-up calls), at encoder stages 0-2 of the flow
-headline (448x1024, 2B = 16). Only "full" computes the stage; the others
-exist to be timed.
+CUDA events after 3 warm-up calls), at encoder stages 0-1 of the flow
+headline (448x1024, 2B = 16), the widths the fused bf16 body is built
+for (stages 2-4 run the implicit GEMM of ``csrc/conv_gemm.cuh``: its
+times are ``qpwcnet_torch.utils.gemm_times``'s). Only "full" computes the
+stage; the others exist to be timed.
 """
 
 from __future__ import annotations
@@ -26,8 +28,7 @@ from qpwcnet_torch.ops.cuda import _build
 
 MISH = "mish2(y)"
 K_LOOP = "for (int kk = 0; kk < kin; kk += 16) {"
-SHAPES = (((16, 448, 1024, 3), 16), ((16, 224, 512, 16), 32),
-          ((16, 112, 256, 32), 64))
+SHAPES = (((16, 448, 1024, 3), 16), ((16, 224, 512, 16), 32))
 
 
 def variants(src: str) -> dict[str, str]:

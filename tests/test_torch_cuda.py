@@ -356,9 +356,30 @@ def test_downconv_stage_kernel_grid(dev, dtype, shape, cout):
 
 @pytest.mark.cuda
 def test_downconv_stage_kernel_co64_grid(dev):
-    """bf16 at Co 64 with more 8 x 16 tiles than resident blocks; each
-    block stages every conv's weights for every tile."""
+    """bf16 at Co 64 (the GEMM, 64-channel tiles) with more 128-position
+    tiles than the persistent grid's blocks, so each walks several."""
     _check_stem(dev, torch.bfloat16, (4, 128, 256, 32), 64, seed=15)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 30, 46, 32), (4, 128, 256, 32)])
+def test_downconv_stage_kernel_bf16_co64_gemm(dev, shape):
+    """bf16 at encoder stage 2 (Ci 32 -> Co 64) through the GEMM: 32-channel
+    K steps in the 64-byte swizzle, 64-channel tiles."""
+    _check_stem(dev, torch.bfloat16, shape, 64, seed=25)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cout", [
+    ((2, 20, 50, 64), 128),   # W/2 = 25: no multiple of the 16-column box
+    ((1, 28, 64, 64), 128),   # batch 1
+    ((1, 12, 20, 128), 256),  # fewer tiles than SMs: 64-row tiles
+    ((2, 22, 34, 32), 64),    # Ci 32 with ragged rows and columns
+])
+def test_downconv_stage_kernel_bf16_tile_edges(dev, shape, cout):
+    """The bf16 GEMM where its boxes run past the image: the stores of
+    the positions outside it are masked, the reads there are zero."""
+    _check_stem(dev, torch.bfloat16, shape, cout, seed=26)
 
 
 @pytest.mark.cuda
@@ -416,12 +437,13 @@ def test_downconv_stage_kernel_f32_co64(dev, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_downconv_stage_wide_launches(dev, dtype):
-    """A wide stage is one wrapper launch: the weights' rounding into the
-    GEMM's layout, then one GEMM a conv."""
+@pytest.mark.parametrize("cin,cout", [(64, 128), (32, 64)])
+def test_downconv_stage_wide_launches(dev, dtype, cin, cout):
+    """A wide stage (Co 64 too) is one wrapper launch: the weights'
+    rounding into the GEMM's layout, then one GEMM a conv."""
     rng = np.random.RandomState(20)
-    x = _rand(rng, (2, 16, 32, 64), dev, dtype, scale=0.5)
-    params = _stem_params(rng, dev, 64, 128)
+    x = _rand(rng, (2, 16, 32, cin), dev, dtype, scale=0.5)
+    params = _stem_params(rng, dev, cin, cout)
     downconv_stage_cuda(x, params, dtype)  # builds the library
     torch.cuda.synchronize()
     names = _device_kernels(lambda: downconv_stage_cuda(x, params, dtype))
@@ -692,6 +714,91 @@ def test_upconv_stage_wide_launches(dev, dtype):
     names = _device_kernels(lambda: upconv_stage_cuda(x, w, b, dtype))
     assert len(names) == 2 and "prep_wt" in names[0], names
     assert "conv_gemm" in names[1], names
+    assert upconv_stage_cuda.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phase", [0, 1, 2, 3])
+def test_upconv_stage_wide_phases(dev, phase):
+    """Each of the four output phases (r, s) of the bf16 GEMM at a shape
+    that is no tile multiple: the pixels (2i + r, 2j + s) against the
+    plain version's, two ulps."""
+    rng = np.random.RandomState(27)
+    x = _rand(rng, (3, 9, 11, 256), dev, torch.bfloat16)
+    w = _rand(rng, (256, 64, 4, 4), dev, scale=1 / 32)
+    b = _rand(rng, (64,), dev, scale=0.1)
+    r, s = phase >> 1, phase & 1
+    got = upconv_stage_cuda(x, w, b, torch.bfloat16)[:, r::2, s::2]
+    want = upconv_stage_plain(x, w, b, torch.bfloat16)[:, r::2, s::2]
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 2 * REL[torch.bfloat16] * max(
+        1.0, float(want.float().abs().max()))
+
+
+def _misaligned(t):
+    """t's values in a contiguous view 2 elements into a new buffer: a
+    16-byte-unaligned address that TMA cannot read."""
+    buf = torch.empty(t.numel() + 2, dtype=t.dtype, device=t.device)
+    v = buf[2:].view(t.shape)
+    v.copy_(t)
+    assert v.data_ptr() % 16 != 0
+    return v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ci20", "offset"])
+@pytest.mark.parametrize("cout", [64, 128])
+def test_downconv_stage_wide_unaligned_input_is_copied(dev, case, cout):
+    """The bf16 GEMM reads inputs of a multiple of 32 channels at a
+    16-byte-aligned address; the wrapper gives it an aligned,
+    channel-padded copy of any other (Ci 20; a view at a 2-element
+    offset): visible device kernels (x's copy and, for Ci 20, conv_a's
+    zero-padded weight) before the weights' rounding and the three
+    GEMMs."""
+    rng = np.random.RandomState(28)
+    cin = 20 if case == "ci20" else 32
+    x = _rand(rng, (2, 14, 22, cin), dev, torch.bfloat16, scale=0.5)
+    if case == "offset":
+        x = _misaligned(x)
+    params = _stem_params(rng, dev, cin, cout)
+    want = downconv_stage_plain(x, params, torch.bfloat16)
+    got = downconv_stage_cuda(x, params, torch.bfloat16)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 4 * REL[torch.bfloat16] * max(
+        1.0, float(want.float().abs().max()))
+    names = _device_kernels(
+        lambda: downconv_stage_cuda(x, params, torch.bfloat16))
+    assert len(names) >= 5 and "prep_w33" in names[-4], names
+    assert all("conv_gemm" in n for n in names[-3:]), names
+    assert not any("prep" in n or "conv_gemm" in n for n in names[:-4])
+    assert downconv_stage_cuda.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ci20", "offset"])
+def test_upconv_stage_wide_unaligned_input_is_copied(dev, case):
+    """K5's wide stage likewise: x's aligned, channel-padded copy and the
+    padded weight, then the weights' rounding and the GEMM."""
+    rng = np.random.RandomState(29)
+    cin = 20 if case == "ci20" else 256
+    x = _rand(rng, (2, 7, 13, cin), dev, torch.bfloat16)
+    if case == "offset":
+        x = _misaligned(x)
+    w = _rand(rng, (cin, 64, 4, 4), dev, scale=(4 * cin) ** -0.5)
+    b = _rand(rng, (64,), dev, scale=0.1)
+    want = upconv_stage_plain(x, w, b, torch.bfloat16)
+    got = upconv_stage_cuda(x, w, b, torch.bfloat16)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 2 * REL[torch.bfloat16] * max(
+        1.0, float(want.float().abs().max()))
+    names = _device_kernels(lambda: upconv_stage_cuda(x, w, b,
+                                                      torch.bfloat16))
+    assert len(names) >= 3, names
+    assert "prep_wt" in names[-2] and "conv_gemm" in names[-1], names
+    assert not any("prep" in n or "conv_gemm" in n for n in names[:-2])
     assert upconv_stage_cuda.launches == 1
 
 

@@ -245,10 +245,12 @@ KERNEL_NAMES = [
     # 0 and 1: K2's stride-2 and stride-1 convs; 2: K5's transpose conv)
     ("void qpw::prep_w33<__nv_bfloat16>(float const*, float const*, "
      "float const*, __nv_bfloat16*, int, int, int)", "K2"),
-    ("void qpw::conv_gemm_mma_kernel<0, 128, 128>(qpw::ConvArgs)", "K2"),
+    ("void qpw::conv_gemm_wgmma_kernel<0, 128, 128>(CUtensorMap_st, "
+     "CUtensorMap_st, qpw::ConvArgs)", "K2"),
     ("void qpw::conv_gemm_f32_kernel<1>(qpw::ConvArgs)", "K2"),
     ("void qpw::prep_wt<float>(float const*, float*, int, int, int)", "K5"),
-    ("void qpw::conv_gemm_mma_kernel<2, 64, 64>(qpw::ConvArgs)", "K5"),
+    ("void qpw::conv_gemm_wgmma_kernel<2, 128, 64>(CUtensorMap_st, "
+     "CUtensorMap_st, qpw::ConvArgs)", "K5"),
     ("void qpw::conv_gemm_f32_kernel<2>(qpw::ConvArgs)", "K5"),
 ]
 
