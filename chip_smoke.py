@@ -110,6 +110,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      approximation), and the launches of K1, K4a and K4b in their haloed
      and unhaloed modes. Two main paths: spatial_infer
      (make_spatial_forward) and spatial_train (make_spatial_train_step).
+  4g. the dataset paths, on fixtures it writes in a temporary directory at
+     each dataset's own layout and frame size (FlyingThings3D: 17 WebP
+     frames at 540x960 and their PFM flows, NaN pixels in one; Sintel: 17
+     frames at 436x1024, converted by data_tools to TFRecord shards;
+     Vimeo-90K: 256x448 PNG triplets; YouTube-VOS: 720x1280 JPEGs); PIL
+     must decode WebP and JPEG. The flow augmentation on the card against
+     the same draws on the CPU (the Sintel batch at base scale 1.0, the
+     FlyingThings3D batch at 0.56, b16 -> 256x512; images within 1e-5,
+     flows within 1e-4 px, each NaN sample's flow channel all 0 on both);
+     then seven main paths, each with its launches: train_flow --data
+     fc3d | sintel | synthetic-uniform (256x512 b16 bf16, augmentation on
+     for the datasets; finite metrics and a checkpoint), pretrain_interp
+     --data vimeo | ytvos | dummy (b8) and interp_infer --data vimeo (14
+     PNGs); and data_tools stats, nan-scan (it must report the NaN
+     sample) and preview.
   5. times: CUDA events after warm-up, median of N: each kernel against
      its plain version at the headline shapes (K4a and K4b at the training
      levels, K5 at its six shapes, with its achieved GB/s), beside its
@@ -132,7 +147,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      haloed modes one call each (K1 at the spatial forward's five levels,
      K4a and K4b at the train step's four haloed levels) beside their
      plain versions and bounds (the halo rows counted); the sharded
-     forward and train step beside the unsharded ones.
+     forward and train step beside the unsharded ones; the data path on
+     phase 4g's fixtures: host decoding a sample, the augmentation's card
+     time a batch and the batch's host-to-card copy, and the train_flow
+     step fed from the FlyingThings3D loader beside the step on synthetic
+     batches (wall time in turns) with its wait on the loader.
 
 The line before the card line is a JSON object with one entry per kernel:
 its launches summed over the main paths' runs (each run with the counts
@@ -1801,10 +1820,12 @@ def load_ckpt(ckpt_dir, step) -> dict:
                       map_location="cpu", weights_only=True)
 
 
-def write_sintel_fixture(root, dev, seed, h=436, w=1024, disp=8.0) -> None:
-    """A Sintel-layout tree: one sequence of 3 frames at h x w of a
+def write_sintel_fixture(root, dev, seed, h=436, w=1024, disp=8.0,
+                         n_frames=3) -> None:
+    """A Sintel-layout tree: one sequence of n_frames frames at h x w of a
     warped synthetic texture (frame_k = warp(frame_k+1, flow_k)) and its
-    two .flo files, written by the port's own PNG and .flo writers."""
+    n_frames - 1 .flo files, written by the port's own PNG and .flo
+    writers."""
     import numpy as np
     import torch
 
@@ -1818,7 +1839,7 @@ def write_sintel_fixture(root, dev, seed, h=436, w=1024, disp=8.0) -> None:
     hp, wp = h + 2 * pad, w + 2 * pad
     frames = [random_texture(gen, 1, hp, wp)]
     flows = []
-    for _ in range(2):
+    for _ in range(n_frames - 1):
         flows.insert(0, random_flow_field(gen, 1, hp, wp, max_disp=disp))
         frames.insert(0, backward_warp(frames[0], flows[0]))
     img_dir = Path(root) / "training" / "final" / "seq"
@@ -2070,6 +2091,255 @@ def phase_ckpt(dev, batch):
               f"{paths['interp_infer_ckpt_app']}")
     torch.cuda.empty_cache()
     log(f"  phase 4d wall time {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
+# ------------------------------------------------------- phase 4g: data
+
+DATA_B, DATA_STEPS, DATA_LOG, DATA_RECAL = 16, 4, 2, 2
+FT3D_HW, SINTEL_HW, VIMEO_HW, YTVOS_HW = (540, 960), (436, 1024), \
+    (256, 448), (720, 1280)
+FT3D_NAN_FRAME = 3
+
+
+def write_pfm(path, arr) -> None:
+    """A little-endian 3-channel PFM of arr (H, W, 3) float32 (rows
+    stored bottom-up)."""
+    import numpy as np
+
+    h, w = arr.shape[:2]
+    Path(path).write_bytes(f"PF\n{w} {h}\n-1.0\n".encode()
+                           + np.flipud(arr).astype("<f4").tobytes())
+
+
+def frames_u8(gen, n, h, w):
+    """n textures (H, W, 3) as host uint8 arrays, made on the card."""
+    import torch
+
+    from qpwcnet_torch.data.synthetic import random_texture
+
+    t = random_texture(gen, n, h, w)
+    return torch.clamp(torch.round(t * 255.0), 0, 255).to(
+        torch.uint8).cpu().numpy()
+
+
+def write_data_fixtures(root, dev, seed) -> dict:
+    """The four datasets in their own layouts and frame sizes under root,
+    each at least one batch: FlyingThings3D (17 WebP frames at 540x960 and
+    their PFM flows, NaN pixels in one), Sintel (17 frames at 436x1024,
+    converted by data_tools to 2 TFRecord shards), Vimeo-90K (8 train and
+    2 test triplets of 256x448 PNGs) and YouTube-VOS (8 train videos of 5
+    720x1280 JPEGs). Returns the data paths by mode."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from qpwcnet_torch.apps import data_tools
+    from qpwcnet_torch.data.synthetic import random_flow_field
+    from qpwcnet_torch.vis import write_png
+
+    root = Path(root)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h, w = FT3D_HW
+    left = root / "f3d" / "frames_finalpass_webp" / "TRAIN" / "A" / \
+        "0000" / "left"
+    flo_dir = root / "f3d" / "optical_flow" / "TRAIN" / "A" / "0000" / \
+        "into_future" / "left"
+    left.mkdir(parents=True)
+    flo_dir.mkdir(parents=True)
+    for k, img in enumerate(frames_u8(gen, DATA_B + 1, h, w)):
+        Image.fromarray(img).save(left / f"{6 + k:04d}.webp", quality=90)
+        flo = random_flow_field(gen, 1, h, w, max_disp=24.0)[0].cpu().numpy()
+        flo = np.concatenate([flo, np.zeros((h, w, 1), np.float32)], -1)
+        if k == FT3D_NAN_FRAME:
+            flo[h // 5:h // 5 + 4, w // 5:w // 5 + 10, 0] = np.nan
+        write_pfm(flo_dir / f"OpticalFlowIntoFuture_{6 + k:04d}_L.pfm", flo)
+    data_tools.main(["fc3d-set", "--root", str(root / "f3d"), "--out",
+                     str(root / "f3d_set.txt")])
+
+    write_sintel_fixture(root / "sintel", dev, seed + 1, *SINTEL_HW,
+                         n_frames=DATA_B + 1)
+    data_tools.main(["convert", "--root", str(root / "sintel"), "--out",
+                     str(root / "shards"), "--shards", "2"])
+
+    vimeo = root / "vimeo"
+    keys = [f"{i // 4 + 1:05d}/{i % 4 + 1:04d}" for i in range(10)]
+    frames = frames_u8(gen, 3 * len(keys), *VIMEO_HW)
+    for i, key in enumerate(keys):
+        d = vimeo / "sequences" / key
+        d.mkdir(parents=True)
+        for j in range(3):
+            write_png(d / f"im{j + 1}.png", frames[3 * i + j])
+    (vimeo / "tri_trainlist.txt").write_text("\n".join(keys[:8]) + "\n")
+    (vimeo / "tri_testlist.txt").write_text("\n".join(keys[8:]) + "\n")
+
+    for v in range(8):
+        d = root / "ytvos" / "train" / "JPEGImages" / f"v{v:03d}"
+        d.mkdir(parents=True)
+        for k, img in enumerate(frames_u8(gen, 5, *YTVOS_HW)):
+            Image.fromarray(img).save(d / f"{5 * k:05d}.jpg", quality=90)
+    return {"fc3d": str(root / "f3d_set.txt"),
+            "sintel": str(root / "shards" / "*.tfrecord"),
+            "vimeo": str(vimeo), "ytvos": str(root / "ytvos"), "dummy": ""}
+
+
+def compare_augmentation(tag, dev, ims_u8, flo, base_scale, seed):
+    """preprocess_flow_batch with the same draws (made on the CPU) on the
+    card and on the CPU: images within 1e-5, flows within 1e-4 px, and
+    each sample's flow channel that holds a NaN all 0 on both."""
+    import numpy as np
+    import torch
+
+    from qpwcnet_torch.data import (
+        draw_flow_augmentation, preprocess_flow_batch)
+
+    draws = draw_flow_augmentation(torch.Generator().manual_seed(seed),
+                                   ims_u8.shape[0], base_scale)
+    out = (TRAIN_H, TRAIN_W)
+    cpu = preprocess_flow_batch(torch.from_numpy(ims_u8),
+                                torch.from_numpy(flo), out, draws)
+    card = preprocess_flow_batch(
+        torch.from_numpy(ims_u8).to(dev), torch.from_numpy(flo).to(dev),
+        out, {k: v.to(dev) for k, v in draws.items()})
+    torch.cuda.synchronize()
+    e_ims = max_err(card["ims"].cpu(), cpu["ims"])
+    e_flo = max_err(card["flo"].cpu(), cpu["flo"])
+    nan = np.argwhere(np.isnan(flo).any(axis=(1, 2)))
+    zeroed = [bool((o["flo"][b, ..., c] == 0).all()) for b, c in nan
+              for o in (cpu, card)]
+    log(f"  augmentation {tag} b{ims_u8.shape[0]} {ims_u8.shape[1]}x"
+        f"{ims_u8.shape[2]} -> {out[0]}x{out[1]}, base scale {base_scale}: "
+        f"card against CPU, images {e_ims:.3e} (tol 1e-5), flows "
+        f"{e_flo:.3e} px (tol 1e-4); NaN (sample, channel)s "
+        f"{nan.tolist()} zeroed on CPU and card: {zeroed}")
+    check(bool(torch.isfinite(card["ims"]).all()
+               and torch.isfinite(card["flo"]).all()),
+          f"augmentation {tag}: non-finite")
+    check(e_ims <= 1e-5 and e_flo <= 1e-4,
+          f"augmentation {tag}: card against CPU {e_ims}, {e_flo}")
+    check(all(zeroed), f"augmentation {tag}: a NaN channel not zeroed")
+
+
+def phase_data(dev, root) -> dict:
+    """Phase 4g: the dataset paths on their own fixtures (written under
+    root): the flow augmentation on the card against the CPU, the
+    train_flow, pretrain_interp and interp_infer dataset modes (main
+    paths) and the data_tools subcommands."""
+    import contextlib
+    import io
+    import os
+
+    import numpy as np
+    import torch
+    from PIL import features
+
+    from qpwcnet_torch.apps import (
+        data_tools, interp_infer, pretrain_interp, train_flow)
+    from qpwcnet_torch.ops import cuda as kernels
+    from qpwcnet_torch.utils.config import parse_config
+
+    log("== phase 4g: the dataset paths (FlyingThings3D, Sintel, "
+        "Vimeo-90K, YouTube-VOS fixtures at their own sizes)")
+    t_phase = time.perf_counter()
+    codecs = {c: features.check(c) for c in ("webp", "jpg", "zlib")}
+    log(f"  PIL codecs: {codecs}")
+    check(all(codecs.values()), f"PIL lacks a codec: {codecs}")
+    root = Path(root)
+    data = write_data_fixtures(root, dev, SEED + 30)
+    log(f"  fixtures written in {time.perf_counter() - t_phase:.1f} s")
+
+    # 1. The augmentation, card against CPU, on the decoded datasets.
+    sintel = parse_config(train_flow.Settings, [
+        "--data", "sintel", "--data-path", data["sintel"], "--batch-size",
+        str(DATA_B)])
+    fc3d = parse_config(train_flow.Settings, [
+        "--data", "fc3d", "--data-path", data["fc3d"], "--batch-size",
+        str(DATA_B)])
+    for tag, cfg, scale in (("Sintel", sintel, 1.0),
+                            ("FlyingThings3D", fc3d, 0.56)):
+        loader = train_flow._dataset_loader(cfg)
+        ims_u8, flo = next(iter(loader))
+        loader.close()
+        compare_augmentation(tag, dev, ims_u8, flo, scale, SEED + 31)
+    del ims_u8, flo
+
+    # 2. The apps' dataset modes: each a main path.
+    paths = {}
+    os.environ["QPWCNET_TORCH_CACHE"] = str(root / "cache")
+
+    def app(name, fn, argv):
+        kernels.reset_launch_counts()
+        out = fn(argv)
+        torch.cuda.synchronize()
+        paths[name] = kernels.launch_counts()
+        return out
+
+    common = ["--steps", str(DATA_STEPS), "--height", str(TRAIN_H),
+              "--width", str(TRAIN_W), "--compute-dtype", "bfloat16",
+              "--log-every", str(DATA_LOG), "--recalibrate-final",
+              str(DATA_RECAL), "--device", str(dev)]
+    for mode, extra in (("fc3d", ["--base-scale", "0.56"]), ("sintel", []),
+                        ("synthetic-uniform", [])):
+        run_root = root / "runs" / mode
+        m = app(f"data_{mode}", train_flow.main, common + [
+            "--data", mode, "--data-path", data.get(mode, ""),
+            "--batch-size", str(TRAIN_B), "--run-root", str(run_root)]
+            + extra)
+        saved = (run_root / "000" / "ckpt" / str(DATA_STEPS) /
+                 "state.pt").exists()
+        log(f"  train_flow --data {mode} {' '.join(extra)} (b{TRAIN_B}, "
+            f"bf16, {DATA_STEPS} steps): last step {m}, checkpoint "
+            f"{saved}, launches {paths[f'data_{mode}']}")
+        check(all(np.isfinite(v) for v in m.values()) and saved,
+              f"train_flow --data {mode}")
+        n_fwd = DATA_STEPS + DATA_STEPS // DATA_LOG + DATA_RECAL
+        check(paths[f"data_{mode}"] == counts_of(
+            K1=5 * n_fwd, K4a=5 * DATA_STEPS, K4b=5 * DATA_STEPS),
+            f"train_flow --data {mode} launches")
+    for mode in ("vimeo", "ytvos", "dummy"):
+        run_root = root / "pre" / mode
+        m = app(f"data_{mode}", pretrain_interp.main, common + [
+            "--data", mode, "--data-path", data[mode], "--batch-size",
+            str(INTERP_B), "--run-root", str(run_root)])
+        saved = (run_root / "000" / "ckpt" / str(DATA_STEPS) /
+                 "state.pt").exists()
+        log(f"  pretrain_interp --data {mode} (b{INTERP_B}, bf16, "
+            f"{DATA_STEPS} steps): last logged loss {m.get('loss')}, loader "
+            f"wait {m.get('loader_wait_ms')} ms a step, checkpoint {saved}, "
+            f"launches {paths[f'data_{mode}']}")
+        check(np.isfinite(m["loss"]) and saved, f"pretrain --data {mode}")
+        check(paths[f"data_{mode}"] == counts_of(
+            K1=5 * (DATA_STEPS + DATA_RECAL), K4a=5 * DATA_STEPS,
+            K4b=5 * DATA_STEPS), f"pretrain --data {mode} launches")
+    results = app("data_interp_infer_vimeo", interp_infer.main, [
+        "--data", "vimeo", "--data-path", data["vimeo"], "--n", "2",
+        "--height", str(TRAIN_H), "--width", str(TRAIN_W), "--out-dir",
+        str(root / "interp_out"), "--device", str(dev)])
+    pngs = list((root / "interp_out").glob("*.png"))
+    log(f"  interp_infer --data vimeo: {results}, {len(pngs)} PNGs, "
+        f"launches {paths['data_interp_infer_vimeo']}")
+    check(len(results) == 2 and all(np.isfinite(r["psnr"])
+                                    for r in results), "interp_infer vimeo")
+    check(len(pngs) == 14, f"interp_infer vimeo wrote {len(pngs)} PNGs")
+    check(paths["data_interp_infer_vimeo"] == counts_of(K1=10),
+          "interp_infer vimeo launches")
+    del os.environ["QPWCNET_TORCH_CACHE"]
+
+    # 3. data_tools (the fc3d set file and the shards above came from
+    # fc3d-set and convert).
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        data_tools.main(["stats", "--shards", data["sintel"]])
+        data_tools.main(["nan-scan", "--set-file", data["fc3d"]])
+    data_tools.main(["preview", "--shards", data["sintel"], "--out",
+                     str(root / "preview.png"), "--device", str(dev)])
+    said = out.getvalue().splitlines()
+    log(f"  data_tools stats / nan-scan: {said}; preview "
+        f"{(root / 'preview.png').stat().st_size} bytes")
+    check(said[0].startswith(f"n={DATA_B} ") and said[1] ==
+          f"1/{DATA_B} samples contain NaNs", f"data_tools said {said}")
+    torch.cuda.empty_cache()
+    log(f"  phase 4g wall time {time.perf_counter() - t_phase:.1f} s")
     return paths
 
 
@@ -2478,6 +2748,134 @@ def phase_times(dev, x, batch, ibatch):
     return totals.rows
 
 
+def data_times(dev, root, n_steps=10, rounds=1):
+    """Phase 5, the data path at 256x512 b16 bf16 on the phase 4g
+    fixtures: host decoding a sample (FlyingThings3D's two WebP frames
+    and PFM flow, a Sintel record), the augmentation's card time a batch
+    (540x960 -> 256x512, base scale 0.56; and its host-to-card copy), and
+    the train_flow step fed from the FlyingThings3D loader (augmentation
+    on) beside the step on synthetic batches made on the card, wall ms a
+    step in turns synthetic, dataset, dataset, synthetic (n_steps each
+    after warm-up), with the time a dataset step waits on the loader."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from qpwcnet_torch.apps import train_flow
+    from qpwcnet_torch.data import (
+        draw_flow_augmentation, preprocess_flow_batch)
+    from qpwcnet_torch.data.augment import color_augment_pair, scale_and_crop
+    from qpwcnet_torch.data.fchairs3d import decode_pair, read_set_file
+    from qpwcnet_torch.data.pfm import read_pfm
+    from qpwcnet_torch.data.pipeline import load_image
+    from qpwcnet_torch.data.tfrecord import (
+        parse_sintel_example, tfrecord_iterator)
+    from qpwcnet_torch.parallel import make_mesh_for_batch, make_parallel_step
+    from qpwcnet_torch.train import make_flow_train_step
+
+    log(f"  the data path ({TRAIN_H}x{TRAIN_W} b{TRAIN_B} bf16, phase 4g's "
+        "fixtures; host clock for the host's work):")
+    root = Path(root)
+    pairs = read_set_file(root / "f3d_set.txt")
+
+    def host_ms(fn, items):
+        t0 = time.perf_counter()
+        for it in items:
+            fn(*it)
+        return 1e3 * (time.perf_counter() - t0) / len(items)
+
+    webp = host_ms(lambda a, b, f: (load_image(a), load_image(b)), pairs)
+    pfm = host_ms(lambda a, b, f: read_pfm(f), pairs)
+    pair = host_ms(decode_pair, pairs)
+    records = [r for s in sorted(glob.glob(str(root / "shards" / "*")))
+               for r in tfrecord_iterator(s)]
+    rec = host_ms(parse_sintel_example, [(r,) for r in records])
+    log(f"    host decode a sample, one thread: FlyingThings3D "
+        f"{FT3D_HW[0]}x{FT3D_HW[1]} {pair:.2f} ms (two WebP frames "
+        f"{webp:.2f}, PFM {pfm:.2f}); Sintel record {SINTEL_HW[0]}x"
+        f"{SINTEL_HW[1]} {rec:.2f} ms ({len(pairs)} and {len(records)} "
+        "samples)")
+
+    cfg = train_flow.Settings(
+        data="fc3d", data_path=str(root / "f3d_set.txt"),
+        batch_size=TRAIN_B, height=TRAIN_H, width=TRAIN_W, base_scale=0.56,
+        compute_dtype="bfloat16", device=str(dev))
+    loader = train_flow._dataset_loader(cfg)
+    batches = iter(loader)
+    ims_u8, flo = next(batches)
+    nbytes = ims_u8.nbytes + flo.nbytes
+    copy = time_ms(lambda: (torch.from_numpy(ims_u8).to(dev),
+                            torch.from_numpy(flo).to(dev)))
+    d_ims, d_flo = torch.from_numpy(ims_u8).to(dev), torch.from_numpy(
+        flo).to(dev)
+    draws = draw_flow_augmentation(
+        torch.Generator(device=dev).manual_seed(SEED + 32), TRAIN_B, 0.56)
+    aug = time_ms(lambda: preprocess_flow_batch(d_ims, d_flo,
+                                                (TRAIN_H, TRAIN_W), draws))
+    crop = time_ms(lambda: scale_and_crop(
+        d_ims, d_flo, (TRAIN_H, TRAIN_W), draws["scale"], draws["oy_frac"],
+        draws["ox_frac"], draws["flip_ud"], draws["flip_lr"]))
+    cropped = scale_and_crop(d_ims, d_flo, (TRAIN_H, TRAIN_W),
+                             draws["scale"], draws["oy_frac"],
+                             draws["ox_frac"])[0]
+    color = time_ms(lambda: color_augment_pair(
+        cropped, draws["brightness"], draws["saturation"], draws["hue"],
+        draws["contrast"]))
+    log(f"    augmentation on the card, {TRAIN_B}x{FT3D_HW[0]}x{FT3D_HW[1]}"
+        f" -> {TRAIN_H}x{TRAIN_W}: {aug:.4f} ms a batch (CUDA events; of "
+        f"it flips + scale and crop {crop:.4f}, colour {color:.4f}); "
+        f"host-to-card copy of the batch ({nbytes / 1e6:.1f} MB, pageable)"
+        f" {copy:.4f} ms")
+    del d_ims, d_flo, cropped
+
+    model = train_flow.build_model(cfg)
+    kind, _ = train_flow._resolve_optimizer(cfg)
+    opt = train_flow._make_optimizer(kind, model, cfg.learning_rate)
+    step_fn = make_parallel_step(make_flow_train_step(),
+                                 make_mesh_for_batch(TRAIN_B))
+    waits = []
+
+    def dataset_step(i):
+        t = time.perf_counter()
+        ims, fl = next(batches)
+        waits.append(time.perf_counter() - t)
+        step_fn(model, opt, train_flow.prepare_batch(cfg, ims, fl, i))
+
+    def synthetic_step(i):
+        step_fn(model, opt, train_flow._batch(cfg, SEED + i, TRAIN_H,
+                                              TRAIN_W, 24.0))
+
+    turn_waits = []
+
+    def wall(fn):
+        def run():
+            for i in range(2):
+                fn(i)
+            torch.cuda.synchronize()
+            start = len(waits)
+            t0 = time.perf_counter()
+            for i in range(n_steps):
+                fn(i)
+            torch.cuda.synchronize()
+            if len(waits) > start:
+                turn_waits.append(1e3 * np.array(waits[start:]))
+            return 1e3 * (time.perf_counter() - t0) / n_steps
+        return run
+
+    in_turns(f"flow step {TRAIN_H}x{TRAIN_W} b{TRAIN_B} bf16, wall ms a "
+             "step", "data", {"synthetic": wall(synthetic_step),
+                              "fc3d": wall(dataset_step)},
+             "img/s", TRAIN_B, rounds=rounds)
+    log("    the dataset step's wait on the loader, ms a step, each turn's "
+        f"mean (max) over {n_steps} steps, 4 loader threads: "
+        + ", ".join(f"{float(t.mean()):.3f} ({float(t.max()):.3f})"
+                    for t in turn_waits))
+    loader.close()
+    del model, opt
+    torch.cuda.empty_cache()
+
+
 def spatial_times(dev, x, batch):
     """The sharded forward (SPATIAL_N_FWD shards) and train step
     (SPATIAL_N_TRAIN) on the local transport beside the unsharded model
@@ -2715,11 +3113,15 @@ def main() -> int:
         ckpt_paths = phase_ckpt(dev, batch)
         fused_paths = phase_fused(dev, x, batch, ibatch)
         spatial_paths = phase_spatial(dev, x, batch)
-    totals = phase_times(dev, x, batch, ibatch)
+    with tempfile.TemporaryDirectory() as data_root:
+        data_paths = phase_data(dev, data_root)
+        totals = phase_times(dev, x, batch, ibatch)
+        data_times(dev, data_root)
     log(f"== all phases passed in {time.perf_counter() - t0:.1f} s")
 
     paths = {"infer_app": infer_counts, "train_app": train_counts,
-             **interp_paths, **ckpt_paths, **fused_paths, **spatial_paths}
+             **interp_paths, **ckpt_paths, **fused_paths, **spatial_paths,
+             **data_paths}
     entries = []
     for name, meta in KERNELS.items():
         key = f"{name}_cuda"

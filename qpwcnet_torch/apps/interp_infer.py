@@ -8,11 +8,12 @@ each triplet's PSNR and half-warp L1.
 Run: python -m qpwcnet_torch.apps.interp_infer --data synthetic --n 2
 
 Modes: 'synthetic' (the JAX app's RandomState(0) uniform triplets, so the
-inputs are the same) and 'dummy' (black frames). ``--load-ckpt <ckpt
-dir>`` loads the parameters and BatchNorm statistics of that directory's
-latest checkpoint (a ``pretrain_interp`` run's) into the JAX app's model.
-Not ported yet, and refused with NotImplementedError: ``--data vimeo |
-ytvos`` (ROADMAP queue 1, data).
+inputs are the same), 'dummy' (black frames), 'vimeo' (Vimeo-90K's 'test'
+split under ``--data-path``) and 'ytvos' (YouTube-VOS's 'valid' split);
+the datasets' first ``--n`` triplets, each frame read and resized to
+``--height x --width``. ``--load-ckpt <ckpt dir>`` loads the parameters
+and BatchNorm statistics of that directory's latest checkpoint (a
+``pretrain_interp`` run's) into the JAX app's model.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from qpwcnet_torch.utils.config import with_args
 
 @dataclasses.dataclass
 class Settings:
-    data: str = "dummy"       # 'dummy' | 'synthetic'
+    data: str = "dummy"       # 'dummy' | 'vimeo' | 'ytvos' | 'synthetic'
     data_path: str = ""
     load_ckpt: str = ""
     height: int = 256
@@ -39,13 +40,6 @@ class Settings:
     n: int = 2
     out_dir: str = ""         # default: <tempdir>/qpwcnet_torch/interp_infer
     device: str = "cuda"
-
-
-def _refuse_unported(cfg: Settings) -> None:
-    if cfg.data not in ("dummy", "synthetic"):
-        raise NotImplementedError(
-            f"--data {cfg.data}: the triplet datasets wait for ROADMAP "
-            "queue 1, data")
 
 
 def build_model(cfg: Settings) -> torch.nn.Module:
@@ -63,15 +57,30 @@ def build_model(cfg: Settings) -> torch.nn.Module:
 
 def _triplets(cfg: Settings):
     """(f0, f1, f2) float32 (H, W, 3) numpy frames in [0, 1]."""
+    from qpwcnet_torch.data.pipeline import load_image
+    from qpwcnet_torch.data.triplet import (
+        DummyTripletDataset,
+        VimeoTriplet,
+        YoutubeVos,
+    )
+
     if cfg.data == "synthetic":
         rng = np.random.RandomState(0)
         for _ in range(cfg.n):
             yield tuple(rng.uniform(0, 1, (cfg.height, cfg.width, 3))
                         .astype(np.float32) for _ in range(3))
+        return
+    if cfg.data == "vimeo":
+        ds = VimeoTriplet(cfg.data_path, "test")
+    elif cfg.data == "ytvos":
+        ds = YoutubeVos(cfg.data_path, "valid")
+    elif cfg.data == "dummy":
+        ds = DummyTripletDataset(n=cfg.n, hw=(cfg.height, cfg.width))
     else:
-        black = np.zeros((cfg.height, cfg.width, 3), np.float32)
-        for _ in range(cfg.n):
-            yield black, black, black
+        raise ValueError(f"unknown data source {cfg.data!r}")
+    for k in ds.keys()[:cfg.n]:
+        yield tuple(load_image(p, (cfg.height, cfg.width)).astype(np.float32)
+                    / 255.0 for p in ds[k])
 
 
 def _save(path, arr01: torch.Tensor) -> None:
@@ -127,7 +136,6 @@ def run(cfg: Settings, model: torch.nn.Module) -> list[dict]:
 
 @with_args(Settings)
 def main(cfg: Settings) -> list[dict]:
-    _refuse_unported(cfg)
     return run(cfg, build_model(cfg))
 
 

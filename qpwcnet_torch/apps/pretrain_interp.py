@@ -19,13 +19,21 @@ on an interrupt and after the recalibration. Batches and augmentation
 draws are indexed by the global step, so a run resumed with
 ``--load-ckpt <ckpt dir>`` replays the uninterrupted one.
 
+The dataset modes, ``--data vimeo`` (Vimeo-90K triplets, ``--data-path``
+its root, split 'train'), ``ytvos`` (YouTube-VOS, split 'train') and
+``dummy`` (black frames): host threads decode the frames, resized to
+``--height x --width``, and batch them (data/pipeline.py:PrefetchLoader,
+this process's shard of the dataset); the step runs on the data-parallel
+mesh with the augmentation draws of the global step; the log carries the
+step's loss, images/s and the ms a step waited on the loader, and the
+recalibration runs on further unaugmented batches. A resumed run starts
+the dataset again from its first epoch, as JAX's does.
+
 Run: python -m qpwcnet_torch.apps.pretrain_interp --steps 20
 
 Not ported yet, and refused with NotImplementedError rather than
-skipped: the datasets (``--data vimeo | ytvos | dummy``) wait for
-ROADMAP queue 1, data; QAT (``--qat``) for ROADMAP queue 1,
-quantization; and ``--debug-nan`` (JAX's NaN checker) has no counterpart
-yet.
+skipped: QAT (``--qat``) waits for ROADMAP queue 1, quantization, and
+``--debug-nan`` (JAX's NaN checker) has no counterpart yet.
 """
 
 from __future__ import annotations
@@ -39,6 +47,8 @@ import torch
 from qpwcnet_torch.data.synthetic import stream_seed
 from qpwcnet_torch.utils.config import with_args
 
+DATA_MODES = ("synthetic", "vimeo", "ytvos", "dummy")
+
 
 @dataclasses.dataclass
 class Settings:
@@ -46,7 +56,7 @@ class Settings:
     port reads or refuses (not ``steps_per_call``, which fuses steps into
     one dispatch), plus the device."""
 
-    data: str = "synthetic"    # only 'synthetic' is ported
+    data: str = "synthetic"    # DATA_MODES
     max_disp: float = 24.0     # synthetic flow magnitude bound (px)
     data_path: str = ""
     batch_size: int = 8
@@ -72,10 +82,8 @@ class Settings:
 
 
 def _refuse_unported(cfg: Settings) -> None:
-    if cfg.data != "synthetic":
-        raise NotImplementedError(
-            f"--data {cfg.data}: the triplet datasets wait for ROADMAP "
-            "queue 1, data")
+    if cfg.data not in DATA_MODES:
+        raise ValueError(f"unknown data source {cfg.data!r}")
     if cfg.qat:
         raise NotImplementedError(
             "--qat: quantization-aware training waits for ROADMAP queue 1, "
@@ -112,37 +120,120 @@ def _batch(cfg: Settings, data_seed: int, aug_seed: int,
     return preprocess_triplet_batch(aug, a, b, c, augment=augment)
 
 
-def run(cfg: Settings):
-    """Pretrain per cfg; returns (model, the last logged metrics as
-    floats: the mean of each step metric since the previous log and
-    'mse_eval')."""
+def _make_dataset(cfg: Settings):
+    """The triplet dataset of cfg.data: Vimeo-90K's or YouTube-VOS's
+    'train' split under cfg.data_path, or max(4 batches, 32) black
+    triplets."""
+    from qpwcnet_torch.data.triplet import (
+        DummyTripletDataset,
+        VimeoTriplet,
+        YoutubeVos,
+    )
+
+    if cfg.data == "vimeo":
+        return VimeoTriplet(cfg.data_path, "train")
+    if cfg.data == "ytvos":
+        return YoutubeVos(cfg.data_path, "train")
+    return DummyTripletDataset(n=max(cfg.batch_size * 4, 32),
+                               hw=(cfg.height, cfg.width))
+
+
+def _triplet_loader(cfg: Settings, shard_index: int = 0,
+                    shard_count: int = 1):
+    """The PrefetchLoader of cfg's triplet dataset (JAX's defaults: seed
+    0, shuffled, 4 workers), frames resized to (height, width), over this
+    process's shard."""
+    from qpwcnet_torch.data.pipeline import PrefetchLoader, triplet_sample_fn
+
+    dataset = _make_dataset(cfg)
+    return PrefetchLoader(
+        triplet_sample_fn(dataset, (cfg.height, cfg.width)), len(dataset),
+        cfg.batch_size, shard_index=shard_index, shard_count=shard_count)
+
+
+def _pretrain_on_dataset(cfg: Settings, model, optimizer, ckpt, writer,
+                         step0: int) -> dict:
+    """The dataset modes: this process's loader batches, preprocessed
+    (augmented with the draws of the global step) on the device and
+    stepped on the data-parallel mesh; then the BatchNorm recalibration
+    on further unaugmented batches. Returns the last logged metrics."""
+    from qpwcnet_torch.data import preprocess_triplet_batch
+    from qpwcnet_torch.parallel import (
+        make_mesh_for_batch,
+        make_parallel_step,
+        process_shard,
+        put_batch,
+        replicate,
+    )
     from qpwcnet_torch.train import (
-        CheckpointManager,
-        MetricWriter,
-        create_interp_train_state,
         make_interp_train_step,
         recalibrate_batch_stats,
     )
-    from qpwcnet_torch.utils.runs import (
-        default_root,
-        setup_run_dir,
-        snapshot_config,
+
+    mesh = make_mesh_for_batch(cfg.batch_size)
+    replicate(model, mesh)
+    step_fn = make_parallel_step(make_interp_train_step(), mesh)
+    loader = _triplet_loader(cfg, *process_shard())
+    batches = iter(loader)
+    dev = torch.device(cfg.device)
+
+    def prepare(frames, aug_seed=None) -> dict:
+        a, b, c = (torch.from_numpy(f).to(dev) for f in frames)
+        gen = None
+        if aug_seed is not None:
+            gen = torch.Generator(device=dev).manual_seed(aug_seed)
+        return preprocess_triplet_batch(gen, a, b, c,
+                                        augment=aug_seed is not None)
+
+    logged, waited = {}, 0.0
+    t0 = time.time()
+    try:
+        for i in range(step0, cfg.steps):
+            t_wait = time.perf_counter()
+            frames = next(batches)
+            waited += time.perf_counter() - t_wait
+            batch = put_batch(prepare(frames, stream_seed(cfg.seed + 1, i)
+                                      if cfg.augment else None), mesh, dev)
+            m = step_fn(model, optimizer, batch)
+            if (i + 1) % cfg.log_every == 0:
+                logged = {k: float(v) for k, v in m.items()}
+                logged["loader_wait_ms"] = 1e3 * waited / cfg.log_every
+                waited = 0.0
+                rate = cfg.batch_size * (i + 1 - step0) / (time.time() - t0)
+                writer.scalars(i + 1, {**logged, "images_per_sec": rate})
+                print(f"step {i + 1}: loss={logged['loss']:.5f} "
+                      f"({rate:.1f} img/s, loader wait "
+                      f"{logged['loader_wait_ms']:.1f} ms a step)",
+                      file=sys.stderr, flush=True)
+            if (i + 1) % cfg.ckpt_every == 0:
+                ckpt.save(i + 1, model, optimizer)
+    except KeyboardInterrupt:
+        print("interrupted; saving", file=sys.stderr)
+    finally:
+        writer.close()
+    if cfg.recalibrate_final:
+        def calib_ims():
+            for _ in range(cfg.recalibrate_final):
+                yield prepare(next(batches))["ims"]
+
+        recalibrate_batch_stats(model, calib_ims(), cfg.recalibrate_final)
+        print(f"recalibrated BN stats over {cfg.recalibrate_final} batches "
+              "before the final save", file=sys.stderr)
+    loader.close()
+    return logged
+
+
+def _pretrain_synthetic(cfg: Settings, model, optimizer, ckpt, writer,
+                        step0: int) -> dict:
+    """The synthetic mode: each step's triplets built and augmented on the
+    device from the seed and the global step; a held-out eval MSE at each
+    log; the recalibration on unaugmented triplets of their own stream.
+    Returns the last logged metrics."""
+    from qpwcnet_torch.train import (
+        make_interp_train_step,
+        recalibrate_batch_stats,
     )
 
-    _refuse_unported(cfg)
-    paths = setup_run_dir(cfg.run_root or default_root("pretrain"))
-    snapshot_config(paths["run"], cfg)
-    print(f"run dir: {paths['run']}", file=sys.stderr)
-
-    model = build_model(cfg)
-    optimizer = create_interp_train_state(model, cfg.learning_rate)
-    ckpt = CheckpointManager(paths["ckpt"])
-    if cfg.load_ckpt:
-        src = CheckpointManager(cfg.load_ckpt)
-        src.restore(model, optimizer)
-        src.close()
-    else:
-        ckpt.restore(model, optimizer)  # auto-resume
     step = make_interp_train_step()
     # Held-out eval triplet, never trained on: eval-mode final-scale MSE
     # with the running BatchNorm statistics, as deployment runs it.
@@ -156,8 +247,6 @@ def run(cfg: Settings):
         return float(torch.mean(torch.square(pred - held["mid"])))
 
     sums, since, logged = None, 0, {}
-    step0 = optimizer.global_step
-    writer = MetricWriter(paths["log"])
     t0 = time.time()
     try:
         for i in range(step0, cfg.steps):
@@ -191,6 +280,44 @@ def run(cfg: Settings):
         recalibrate_batch_stats(model, calib_ims(), cfg.recalibrate_final)
         print(f"recalibrated BN stats over {cfg.recalibrate_final} batches "
               "before the final save", file=sys.stderr)
+    return logged
+
+
+def run(cfg: Settings):
+    """Pretrain per cfg; returns (model, the last logged metrics as
+    floats: synthetic, the mean of each step metric since the previous log
+    and 'mse_eval'; the datasets, the step's metrics and
+    'loader_wait_ms')."""
+    from qpwcnet_torch.train import (
+        CheckpointManager,
+        MetricWriter,
+        create_interp_train_state,
+    )
+    from qpwcnet_torch.utils.runs import (
+        default_root,
+        setup_run_dir,
+        snapshot_config,
+    )
+
+    _refuse_unported(cfg)
+    paths = setup_run_dir(cfg.run_root or default_root("pretrain"))
+    snapshot_config(paths["run"], cfg)
+    print(f"run dir: {paths['run']}", file=sys.stderr)
+
+    model = build_model(cfg)
+    optimizer = create_interp_train_state(model, cfg.learning_rate)
+    ckpt = CheckpointManager(paths["ckpt"])
+    if cfg.load_ckpt:
+        src = CheckpointManager(cfg.load_ckpt)
+        src.restore(model, optimizer)
+        src.close()
+    else:
+        ckpt.restore(model, optimizer)  # auto-resume
+    step0 = optimizer.global_step
+    writer = MetricWriter(paths["log"])
+    train = _pretrain_on_dataset if cfg.data != "synthetic" \
+        else _pretrain_synthetic
+    logged = train(cfg, model, optimizer, ckpt, writer, step0)
     ckpt.save(optimizer.global_step, model, optimizer)
     ckpt.wait()
     return model, logged

@@ -1,30 +1,46 @@
 """Supervised optical-flow training app (port of
-qpwcnet_tpu/apps/train_flow.py), synthetic mode.
+qpwcnet_tpu/apps/train_flow.py).
 
 Each run makes the next run directory under ``--run-root``
-(``NNN/{log,ckpt}``, ``config.json``). Each step builds its batch on the
-device (data/synthetic.py) from the seed and the global step index, and
-runs the train step (multiscale Huber loss, l2 term, NaN-grad scrub,
-[AGC], Adam; train/train_state.py). Every ``log_every`` steps it prints
-and writes to ``log/metrics.jsonl`` the loss, the EPE, the held-out EPE
-with the running BatchNorm statistics, the predict-zero EPE and
-images/s; every ``ckpt_every`` steps, and on an interrupt, it saves a
-checkpoint. A resolution curriculum (1/4, then 1/2 size) runs first on
-a fresh run, and the BatchNorm statistics are recalibrated before the
-final save.
+(``NNN/{log,ckpt}``, ``config.json``). Data modes:
+
+  * ``synthetic`` (default): each step builds its batch on the device
+    (data/synthetic.py) from the seed and the global step index; a
+    resolution curriculum (1/4, then 1/2 size) runs first on a fresh run.
+  * ``synthetic-uniform``: the host generator (one integer shift a
+    sample), batches indexed by the global step (a resumed run replays).
+  * ``fc3d`` (``--data-path`` a FlyingThings3D set file, see
+    ``apps/data_tools.py fc3d-set``; ``--base-scale 0.56`` as the
+    reference) and ``sintel`` (``--data-path`` a TFRecord shard glob, see
+    ``data_tools convert``): host threads decode and batch
+    (data/pipeline.py:PrefetchLoader, this process's shard of the
+    dataset), and each batch is augmented on the device (``--augment
+    auto`` is on for them, off for the generators). A resumed run starts
+    the dataset again from its first epoch, as JAX's does.
+
+The host-data modes run the step on the data-parallel mesh
+(``make_mesh_for_batch``, one process a data shard under
+torch.distributed), with the augmentation draws indexed by the global
+step. Each step runs the train step (multiscale Huber loss, l2 term,
+NaN-grad scrub, [AGC], Adam; train/train_state.py). Every ``log_every``
+steps it prints and writes to ``log/metrics.jsonl`` the loss, the EPE,
+the EPE with the running BatchNorm statistics (on a held-out batch, or on
+the current one in the host-data modes), the predict-zero EPE, images/s
+and, in the host-data modes, the ms a step waited on the loader; every
+``ckpt_every`` steps, and on an interrupt, it saves a checkpoint. The
+BatchNorm statistics are recalibrated (on unaugmented batches) before
+the final save.
 
 ``--load-ckpt <ckpt dir>`` resumes from that directory's latest
-checkpoint (model, optimizer and step): a run interrupted and resumed
-with ``--curriculum ''`` replays the uninterrupted one. With
+checkpoint (model, optimizer and step): a synthetic run interrupted and
+resumed with ``--curriculum ''`` replays the uninterrupted one. With
 ``--transfer-from-interp true`` it instead copies the encoder, decoder
 and flower of a ``pretrain_interp`` checkpoint into the fresh model.
 
 Run: python -m qpwcnet_torch.apps.train_flow --data synthetic --steps 20
 
 Not ported yet, and refused with NotImplementedError rather than
-skipped: the datasets and the host generator (``--data fc3d | sintel |
-synthetic-uniform``) and augmentation wait for ROADMAP queue 1, data;
-QAT (``--qat``) for ROADMAP queue 1, quantization.
+skipped: QAT (``--qat``) waits for ROADMAP queue 1, quantization.
 """
 
 from __future__ import annotations
@@ -33,10 +49,13 @@ import dataclasses
 import sys
 import time
 
+import numpy as np
 import torch
 
 from qpwcnet_torch.data.synthetic import stream_seed
 from qpwcnet_torch.utils.config import with_args
+
+DATA_MODES = ("synthetic", "synthetic-uniform", "fc3d", "sintel")
 
 
 @dataclasses.dataclass
@@ -45,16 +64,17 @@ class Settings:
     the port reads or refuses (not ``steps_per_call``, which fuses steps
     into one dispatch), plus the device."""
 
-    data: str = "synthetic"   # only 'synthetic' is ported
+    data: str = "synthetic"   # DATA_MODES
     max_disp: float = 24.0    # synthetic flow magnitude bound (px)
-    data_path: str = ""
+    data_path: str = ""       # fc3d set file / sintel shard glob
     batch_size: int = 16
     learning_rate: float = 1e-4
     steps: int = 100_000
     height: int = 256
     width: int = 512
-    base_scale: float = 1.0   # augmentation only
-    augment: str = "auto"     # 'auto' is off for synthetic data
+    base_scale: float = 1.0   # 0.56 for FlyingThings3D
+    # 'auto': on for the datasets, off for the generators; 'on' / 'off'
+    augment: str = "auto"
     log_every: int = 100
     ckpt_every: int = 2000
     run_root: str = ""        # default: <tempdir>/qpwcnet_torch/run
@@ -78,14 +98,8 @@ class Settings:
 
 
 def _refuse_unported(cfg: Settings) -> None:
-    if cfg.data != "synthetic":
-        raise NotImplementedError(
-            f"--data {cfg.data}: the datasets and the host generator wait "
-            "for ROADMAP queue 1, data")
-    if cfg.augment == "on":
-        raise NotImplementedError(
-            "--augment on: the flow augmentation waits for ROADMAP queue 1, "
-            "data")
+    if cfg.data not in DATA_MODES:
+        raise ValueError(f"unknown data source {cfg.data!r}")
     if cfg.qat:
         raise NotImplementedError(
             "--qat: quantization-aware training waits for ROADMAP queue 1, "
@@ -122,20 +136,33 @@ def build_model(cfg: Settings) -> torch.nn.Module:
                           residual=cfg.residual)
 
 
-def _batch(cfg: Settings, seed: int, h: int, w: int, disp: float) -> dict:
-    from qpwcnet_torch.data import preprocess_flow_batch, synthetic_flow_batch
+def _batch(cfg: Settings, seed: int, h: int, w: int, disp: float,
+           aug_seed=None) -> dict:
+    """The synthetic batch of ``seed``, augmented with the draws of
+    ``aug_seed`` when it is given."""
+    from qpwcnet_torch.data import (
+        draw_flow_augmentation,
+        preprocess_flow_batch,
+        synthetic_flow_batch,
+    )
 
     gen = torch.Generator(device=cfg.device).manual_seed(seed)
     ims_u8, flo = synthetic_flow_batch(gen, cfg.batch_size, h, w,
                                        max_disp=disp)
-    return preprocess_flow_batch(ims_u8, flo, out_hw=(h, w))
+    draws = None
+    if aug_seed is not None:
+        gen = torch.Generator(device=cfg.device).manual_seed(aug_seed)
+        draws = draw_flow_augmentation(gen, cfg.batch_size, cfg.base_scale)
+    return preprocess_flow_batch(ims_u8, flo, (h, w), draws)
 
 
 def _train(cfg: Settings, model, optimizer, l2_gamma: float,
            steps: range, h: int, w: int, disp: float, stream: tuple,
-           tag: str, writer=None, ckpt=None) -> dict:
+           tag: str, writer=None, ckpt=None, augment: bool = False) -> dict:
     """The train steps ``steps`` (global indices) at (h, w), step i on
-    the batch of ``stream_seed(*stream, i)``; every cfg.log_every steps
+    the batch of ``stream_seed(*stream, i)`` (``augment``: with the
+    augmentation draws of ``stream_seed(cfg.seed + 1, i)``); every
+    cfg.log_every steps
     a log line (and a ``writer`` record), every cfg.ckpt_every a save to
     ``ckpt`` labelled i + 1. Returns the last step's metrics (floats)."""
     from qpwcnet_torch.data import zero_baseline_epe
@@ -149,7 +176,8 @@ def _train(cfg: Settings, model, optimizer, l2_gamma: float,
     t0 = time.time()
     m = {}
     for i in steps:
-        batch = _batch(cfg, stream_seed(*stream, i), h, w, disp)
+        batch = _batch(cfg, stream_seed(*stream, i), h, w, disp,
+                       stream_seed(cfg.seed + 1, i) if augment else None)
         m = step(model, optimizer, batch)
         sums = m if sums is None else {k: sums[k] + m[k] for k in m}
         since += 1
@@ -246,6 +274,174 @@ def _recalibrate(cfg: Settings, model) -> None:
           "before the final save", file=sys.stderr)
 
 
+def _synthetic_batches(cfg: Settings, start_step: int = 0):
+    """The host generator (JAX's, draw for draw): smooth textures (4x4
+    blocks of uniform noise) shifted by one integer flow a sample
+    (prv[p] == nxt[p + flow]), uint8 (B, H, W, 6) and float32 (B, H, W, 2)
+    numpy batches. Batch i comes from its own RandomState, so a run
+    resumed at step k sees the batches an uninterrupted run saw from k."""
+    h, w = cfg.height, cfg.width
+    idx = start_step
+    while True:
+        rng = np.random.RandomState(
+            (cfg.seed * 1_000_003 + idx) % (2**31 - 1))
+        idx += 1
+        base = rng.uniform(0, 255, (cfg.batch_size, h // 4, w // 4, 3))
+        prv = base.repeat(4, axis=1).repeat(4, axis=2)[:, :h, :w]
+        prv = prv.astype(np.uint8)
+        uv = rng.randint(-8, 9, size=(cfg.batch_size, 2))
+        ims = np.empty((cfg.batch_size, h, w, 6), np.uint8)
+        flo = np.empty((cfg.batch_size, h, w, 2), np.float32)
+        for k in range(cfg.batch_size):
+            u, v = int(uv[k, 0]), int(uv[k, 1])
+            # prv[i, j] == nxt[i + v, j + u]  =>  nxt = roll(prv, (v, u))
+            ims[k, ..., :3] = prv[k]
+            ims[k, ..., 3:] = np.roll(prv[k], shift=(v, u), axis=(0, 1))
+            flo[k] = uv[k].astype(np.float32)
+        yield ims, flo
+
+
+def _dataset_loader(cfg: Settings, shard_index: int = 0,
+                    shard_count: int = 1):
+    """The PrefetchLoader of cfg's dataset (JAX's defaults: seed 0,
+    shuffled, 4 workers), over this process's shard: 'fc3d' reads the
+    pairs of the set file cfg.data_path, 'sintel' every record of the
+    shards cfg.data_path matches (a glob, relative or absolute) into
+    memory."""
+    import glob
+
+    from qpwcnet_torch.data.pipeline import PrefetchLoader, flow_sample_fn
+
+    if cfg.data == "fc3d":
+        from qpwcnet_torch.data.fchairs3d import decode_pair, read_set_file
+
+        pairs = read_set_file(cfg.data_path)
+        sample, n = flow_sample_fn(pairs, decode_pair), len(pairs)
+    elif cfg.data == "sintel":
+        from qpwcnet_torch.data.tfrecord import (
+            parse_sintel_example,
+            tfrecord_iterator,
+        )
+
+        records = [r for s in sorted(glob.glob(cfg.data_path))
+                   for r in tfrecord_iterator(s)]
+
+        def sample(i):
+            return parse_sintel_example(records[i])
+
+        n = len(records)
+    else:
+        raise ValueError(f"unknown data source {cfg.data!r}")
+    return PrefetchLoader(sample, n, cfg.batch_size,
+                          shard_index=shard_index, shard_count=shard_count)
+
+
+def prepare_batch(cfg: Settings, ims_u8, flo, step=None) -> dict:
+    """A host batch (numpy uint8 frames, float32 flow) on cfg.device,
+    preprocessed there: augmented with the draws of global step ``step``
+    (None: resized, unaugmented) at cfg.base_scale."""
+    from qpwcnet_torch.data import (
+        draw_flow_augmentation,
+        preprocess_flow_batch,
+    )
+
+    dev = torch.device(cfg.device)
+    ims_u8 = torch.from_numpy(ims_u8).to(dev)
+    flo = torch.from_numpy(flo).to(dev)
+    draws = None
+    if step is not None:
+        gen = torch.Generator(device=dev).manual_seed(
+            stream_seed(cfg.seed + 1, step))
+        draws = draw_flow_augmentation(gen, ims_u8.shape[0], cfg.base_scale)
+    return preprocess_flow_batch(ims_u8, flo, (cfg.height, cfg.width),
+                                 draws)
+
+
+def _train_on_host_data(cfg: Settings, model, optimizer, ckpt, writer,
+                        step0: int) -> dict:
+    """The host-data modes: batches from the host generator or this
+    process's dataset loader, preprocessed on the device and stepped on
+    the data-parallel mesh; then the BatchNorm recalibration on further
+    unaugmented batches. Returns the last step's metrics (floats)."""
+    from qpwcnet_torch.data import zero_baseline_epe
+    from qpwcnet_torch.data.pipeline import prefetch_iterator
+    from qpwcnet_torch.parallel import (
+        make_mesh_for_batch,
+        make_parallel_step,
+        process_shard,
+        put_batch,
+        replicate,
+    )
+    from qpwcnet_torch.train import (
+        epe_error,
+        make_flow_train_step,
+        recalibrate_batch_stats,
+    )
+
+    mesh = make_mesh_for_batch(cfg.batch_size)
+    replicate(model, mesh)
+    step_fn = make_parallel_step(make_flow_train_step(), mesh)
+    loader = None
+    if cfg.data == "synthetic-uniform":
+        batches = prefetch_iterator(_synthetic_batches(cfg, step0))
+    else:
+        loader = _dataset_loader(cfg, *process_shard())
+        batches = iter(loader)
+    augment = cfg.augment == "on" or (
+        cfg.augment == "auto" and cfg.data != "synthetic-uniform")
+    dev = torch.device(cfg.device)
+
+    def eval_epe(batch) -> dict:
+        model.eval()
+        with torch.no_grad():
+            e = epe_error(batch["flo"], model(batch["ims"]))
+        model.train()
+        return mesh.mean_over_data({"epe_eval": e,
+                                    "epe_zero": zero_baseline_epe(
+                                        batch["flo"])})
+
+    metrics, waited = {}, 0.0
+    t0 = time.time()
+    try:
+        for i in range(step0, cfg.steps):
+            t_wait = time.perf_counter()
+            ims_u8, flo = next(batches)
+            waited += time.perf_counter() - t_wait
+            batch = put_batch(prepare_batch(cfg, ims_u8, flo,
+                                            i if augment else None),
+                              mesh, dev)
+            metrics = step_fn(model, optimizer, batch)
+            if (i + 1) % cfg.log_every == 0:
+                m = {k: float(v) for k, v in metrics.items()}
+                m.update({k: float(v) for k, v in eval_epe(batch).items()})
+                m["loader_wait_ms"] = 1e3 * waited / cfg.log_every
+                waited = 0.0
+                rate = cfg.batch_size * (i + 1 - step0) / (time.time() - t0)
+                writer.scalars(i + 1, {**m, "images_per_sec": rate})
+                print(f"step {i + 1}: loss={m['loss']:.4f} "
+                      f"epe={m['epe']:.3f} epe_eval={m['epe_eval']:.3f} "
+                      f"epe_zero={m['epe_zero']:.3f} ({rate:.1f} img/s, "
+                      f"loader wait {m['loader_wait_ms']:.1f} ms a step)",
+                      file=sys.stderr, flush=True)
+            if (i + 1) % cfg.ckpt_every == 0:
+                ckpt.save(i + 1, model, optimizer)
+    except KeyboardInterrupt:
+        print("interrupted; saving", file=sys.stderr)
+    finally:
+        writer.close()
+    if cfg.recalibrate_final:
+        def calib_ims():
+            for _ in range(cfg.recalibrate_final):
+                yield prepare_batch(cfg, *next(batches))["ims"]
+
+        recalibrate_batch_stats(model, calib_ims(), cfg.recalibrate_final)
+        print(f"recalibrated BN stats over {cfg.recalibrate_final} batches "
+              "before the final save", file=sys.stderr)
+    if loader is not None:
+        loader.close()
+    return {k: float(v) for k, v in metrics.items()}
+
+
 def run(cfg: Settings):
     """Train per cfg; returns (model, the last step's metrics)."""
     from qpwcnet_torch.train import CheckpointManager, MetricWriter
@@ -264,21 +460,26 @@ def run(cfg: Settings):
     # JAX reads the step before the curriculum, whose steps the stored
     # step counts and the main loop's labels do not
     step0 = optimizer.global_step
-    if cfg.curriculum and step0 == 0 and not cfg.load_ckpt:
-        _curriculum(cfg, model, optimizer, kind, l2_gamma)
-
-    metrics = {}
     writer = MetricWriter(paths["log"])
-    try:
-        metrics = _train(cfg, model, optimizer, l2_gamma,
-                         range(step0, cfg.steps), cfg.height, cfg.width,
-                         cfg.max_disp, (cfg.seed + 2,), "", writer, ckpt)
-    except KeyboardInterrupt:
-        print("interrupted; saving", file=sys.stderr)
-    finally:
-        writer.close()
-    if cfg.recalibrate_final:
-        _recalibrate(cfg, model)
+    if cfg.data != "synthetic":
+        metrics = _train_on_host_data(cfg, model, optimizer, ckpt, writer,
+                                      step0)
+    else:
+        if cfg.curriculum and step0 == 0 and not cfg.load_ckpt:
+            _curriculum(cfg, model, optimizer, kind, l2_gamma)
+        metrics = {}
+        try:
+            # 'auto' is off for the generator
+            metrics = _train(cfg, model, optimizer, l2_gamma,
+                             range(step0, cfg.steps), cfg.height, cfg.width,
+                             cfg.max_disp, (cfg.seed + 2,), "", writer, ckpt,
+                             augment=cfg.augment == "on")
+        except KeyboardInterrupt:
+            print("interrupted; saving", file=sys.stderr)
+        finally:
+            writer.close()
+        if cfg.recalibrate_final:
+            _recalibrate(cfg, model)
     # labelled by the stored step: at a periodic save's label (no
     # curriculum, steps a multiple of ckpt_every) a no-op, as in JAX
     ckpt.save(optimizer.global_step, model, optimizer)

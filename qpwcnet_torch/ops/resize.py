@@ -25,6 +25,90 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     return nhwc(y)
 
 
+def spread_nonfinite(x: torch.Tensor, y: torch.Tensor,
+                     dims: tuple[int, ...]) -> torch.Tensor:
+    """y, a resampling of x along ``dims``, with the non-finite values of x
+    spread as JAX's resampling spreads them.
+
+    ``jax.image.resize`` and ``scale_and_translate`` contract each resized
+    axis with a dense weight matrix, and 0 x NaN and 0 x inf are NaN: a
+    NaN of x makes every output along those axes NaN (one NaN pixel of a
+    sample's channel, both axes resized: the whole channel), and an inf
+    makes every output it does not reach NaN. ``dims`` are the resized
+    axes of x and y; the others must match."""
+    if not dims:
+        return y
+    nan = torch.isnan(x).any(dim=dims, keepdim=True)
+    inf = torch.isinf(x).any(dim=dims, keepdim=True)
+    return torch.where(nan | (inf & torch.isfinite(y)), torch.nan, y)
+
+
+def _bilinear_taps(n_in: int, n_out: int, scale: torch.Tensor,
+                   translation: torch.Tensor, flip=None):
+    """The two input indices and weights of each output along one axis of
+    :func:`scale_and_translate_bilinear`, per sample: ((i0, w0), (i1,
+    w1)), each (B, n_out). JAX's weight matrix, column by column: the
+    triangle kernel at sample f = (o + 0.5) / s - t / s - 0.5, the weights
+    divided by their sum (an edge clamp), zero where f lies outside
+    [-0.5, n_in - 0.5]. ``flip`` (B,) bool: the indices mirrored (n_in - 1
+    - i) in those samples, which samples the flipped input."""
+    inv = (1.0 / scale)[:, None]
+    o = torch.arange(n_out, dtype=torch.float32, device=scale.device)
+    f = (o + 0.5) * inv - translation[:, None] * inv - 0.5
+    taps = []
+    for i in (torch.floor(f), torch.floor(f) + 1.0):
+        w = torch.clamp(1.0 - torch.abs(f - i), min=0.0)
+        w = torch.where((i >= 0) & (i <= n_in - 1), w, 0.0)
+        i = i.clamp(0, n_in - 1).long()
+        if flip is not None:
+            i = torch.where(flip[:, None], n_in - 1 - i, i)
+        taps.append((i, w))
+    total = taps[0][1] + taps[1][1]
+    keep = (total.abs() > 1000.0 * torch.finfo(torch.float32).eps) \
+        & (f >= -0.5) & (f <= n_in - 0.5)
+    safe = torch.where(total != 0, total, 1.0)
+    return [(i, torch.where(keep, w / safe, 0.0)) for i, w in taps]
+
+
+def _unit(v: torch.Tensor) -> torch.Tensor:
+    """Gathered values as float32: uint8 image values / 255."""
+    return v.float() * (1.0 / 255.0) if v.dtype == torch.uint8 else v
+
+
+def scale_and_translate_bilinear(x: torch.Tensor, out_hw: tuple[int, int],
+                                 scale: torch.Tensor,
+                                 translation: torch.Tensor,
+                                 flip_h=None, flip_w=None) -> torch.Tensor:
+    """``jax.image.scale_and_translate(x, (B, oh, ow, C), (1, 2), (s, s),
+    (ty, tx), 'bilinear', antialias=False)`` with a scale and translation
+    per sample: out[y, x] samples x at ((y + 0.5 - ty) / s - 0.5, (x + 0.5
+    - tx) / s - 0.5) with a triangle kernel of width 1 (no antialias, also
+    for s < 1), clamped at the border and 0 where the sample lies more
+    than half a pixel outside the input.
+
+    Two taps per axis gathered by index (rows, then columns) and summed
+    in float32 (no matmul, so no TF32), with JAX's spreading of
+    non-finite values (:func:`spread_nonfinite`). x: (B, H, W, C) float32,
+    or uint8 image values read as x / 255 (converted after the gather:
+    the same values); scale: (B,); translation: (B, 2) as (ty, tx);
+    ``flip_h`` / ``flip_w`` (B,) bool: resample x flipped along H / W in
+    those samples (folded into the taps: the values of flipping first)."""
+    b, h, w, _ = x.shape
+    oh, ow = out_hw
+    bi = torch.arange(b, device=x.device)
+    rows = [_unit(x[bi[:, None], i]) * wt[:, :, None, None] for i, wt in
+            _bilinear_taps(h, oh, scale, translation[:, 0], flip_h)]
+    y = rows[0] + rows[1]                           # (B, oh, W, C)
+    r = torch.arange(oh, device=x.device)[None, :, None]
+    cols = [y[bi[:, None, None], r, j[:, None, :]] * wt[:, None, :, None]
+            for j, wt in _bilinear_taps(w, ow, scale, translation[:, 1],
+                                        flip_w)]
+    y = cols[0] + cols[1]                           # (B, oh, ow, C)
+    if x.dtype == torch.uint8:
+        return y
+    return spread_nonfinite(x, y, (1, 2))
+
+
 def upsample2x_bilinear(x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
     """2x bilinear upsampling times a scalar (2.0 doubles flow magnitude).
 

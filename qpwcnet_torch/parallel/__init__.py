@@ -15,6 +15,7 @@ from qpwcnet_torch.parallel.multihost import (
     initialize_distributed,
     is_primary,
     make_global_batch,
+    process_shard,
 )
 from qpwcnet_torch.parallel.spatial import (
     batch_spatial_spec,
@@ -36,6 +37,7 @@ __all__ = [
     "cost_volume_spatial",
     "make_mesh",
     "make_mesh_for_batch",
+    "process_shard",
     "put_batch",
     "shard_batch",
     "replicate",

@@ -59,6 +59,15 @@ def make_global_batch(batch, mesh, device=None):
     return put(batch)
 
 
+def process_shard() -> tuple[int, int]:
+    """(this process's rank, the world size) of the process group, (0, 1)
+    without one: a loader's shard_index and shard_count (JAX's
+    process_index() and process_count())."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
 def is_primary() -> bool:
     """True on the process that should write checkpoints and logs."""
     return not (dist.is_available() and dist.is_initialized()) \

@@ -1,4 +1,6 @@
-"""PNG output without image libraries (zlib + struct from the stdlib)."""
+"""Visualization output (port of qpwcnet_tpu/vis.py): PNGs written without
+image libraries (zlib + struct from the stdlib), and named images tiled
+into one canvas."""
 
 from __future__ import annotations
 
@@ -24,3 +26,41 @@ def write_png(path, rgb: np.ndarray) -> None:
            + chunk(b"IDAT", zlib.compress(raw, 6))
            + chunk(b"IEND", b""))
     Path(path).write_bytes(png)
+
+
+def _to_u8(img) -> np.ndarray:
+    img = np.asarray(img)
+    if img.ndim == 2:
+        img = img[..., None].repeat(3, -1)
+    if img.dtype != np.uint8:
+        img = (np.clip(img, 0.0, 1.0) * 255.0).astype(np.uint8)
+    return img
+
+
+def tile_images(images: dict, cols: int = 3) -> np.ndarray:
+    """Tile named images (H, W, 3) or (H, W), uint8 or float in [0, 1],
+    of any sizes, row by row into one uint8 canvas of cols columns (the
+    port's copy of qpwcnet_tpu/vis.py:tile_images)."""
+    items = [_to_u8(v) for v in images.values()]
+    h = max(v.shape[0] for v in items)
+    w = max(v.shape[1] for v in items)
+    rows = (len(items) + cols - 1) // cols
+    canvas = np.zeros((rows * h, cols * w, 3), np.uint8)
+    for i, img in enumerate(items):
+        r, c = divmod(i, cols)
+        canvas[r * h:r * h + img.shape[0], c * w:c * w + img.shape[1]] = img
+    return canvas
+
+
+def show(images: dict, out_path=None) -> np.ndarray:
+    """Write the tiled canvas of ``images`` as a PNG to out_path
+    (``<tempdir>/qpwcnet_torch_show.png`` by default) and return it. The
+    JAX function can also open an OpenCV window; the port is headless."""
+    import tempfile
+
+    canvas = tile_images(images)
+    if out_path is None:
+        out_path = Path(tempfile.gettempdir()) / "qpwcnet_torch_show.png"
+    Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+    write_png(out_path, canvas)
+    return canvas

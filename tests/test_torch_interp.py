@@ -418,9 +418,8 @@ def test_pretrain_app_runs_on_cpu(capsys, tmp_path):
     assert f"run dir: {tmp_path / '000'}" in err
 
 
-@pytest.mark.parametrize("extra", [
-    ["--data", "vimeo"], ["--data", "ytvos"], ["--data", "dummy"],
-    ["--qat", "true"], ["--debug-nan", "true"]])
+@pytest.mark.parametrize("extra", [["--qat", "true"],
+                                   ["--debug-nan", "true"]])
 def test_pretrain_app_refuses_unported_modes(tmp_path, extra):
     with pytest.raises(NotImplementedError):
         pretrain_interp.main(APP_ARGS + ["--steps", "2", "--run-root",
@@ -437,13 +436,6 @@ def test_interp_infer_app_runs_on_cpu(tmp_path, data):
     assert len(list(tmp_path.glob("*.png"))) == 7
     if data == "synthetic":
         assert np.isfinite(results[0]["psnr"])
-
-
-@pytest.mark.parametrize("extra", [["--data", "vimeo"], ["--data", "ytvos"]])
-def test_interp_infer_app_refuses_unported_modes(tmp_path, extra):
-    with pytest.raises(NotImplementedError):
-        interp_infer.main(["--device", "cpu", "--out-dir", str(tmp_path)]
-                          + extra)
 
 
 def test_profiling_categories():
