@@ -2343,6 +2343,287 @@ def phase_data(dev, root) -> dict:
     return paths
 
 
+# The quantization slice (phase 4h): QAT at the train slices' shapes, int8
+# inference at the JAX bench's int8 headline (bench.py:243-264: 448x1024
+# b8, bf16 activations), the QAT apps and convert_quant. The plain models
+# take cv_impl='plain' (K1, K4a, K4b as plain PyTorch); the 'fast' int8
+# reference also runs K3's plain version (plain_fused_warp).
+QUANT_FLIP_SHARE = 0.01  # int8 codes a kernel may flip at a chained conv
+
+
+@contextlib.contextmanager
+def plain_fused_warp():
+    """K3's wrapper swapped for its plain version on card tensors (the
+    Functions look the wrapper up at call time): the reference of the
+    int8 'fast' model, whose finest level computes the window warp."""
+    from qpwcnet_torch.ops.cuda import warp_cv_kernel as k3
+
+    saved = k3.warp_cost_volume_cuda
+    k3.warp_cost_volume_cuda = k3.warp_cost_volume_plain
+    try:
+        yield
+    finally:
+        k3.warp_cost_volume_cuda = saved
+
+
+def ranges_of(model) -> dict:
+    from qpwcnet_torch.quantize.qlayers import quant_ranges
+
+    return {k: b.detach().clone() for k, b in quant_ranges(model).items()}
+
+
+def range_err(got, want) -> float:
+    """The largest |got - want| of any range vector over its largest
+    channel."""
+    return max(float((got[k] - w).abs().max()) / max(float(w.max()), 1e-30)
+               for k, w in want.items())
+
+
+def qat_steps(dev, build_fn, batch, make_step, per_step, tag):
+    """One QAT step (learning rate 0) of the plain model in float32 and
+    bf16 and of the kernel model in bf16: the loss, every gradient
+    (phase 4b's bf16 rule against the plain bf16 step, the plain float32
+    step its noise floor) and the ranges the step's forward set (within
+    2x the plain bf16 step's own distance from the float32 one, plus 1e-6
+    of the range). Returns the kernel step's launches."""
+    import numpy as np
+    import torch
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    res = {}
+    for mode, dtype, cv in (("plain", f32, "plain"), ("plain", bf16, "plain"),
+                            ("kernel", bf16, "auto")):
+        m = build_fn(dtype, cv)
+        loss, grads, counts = grad_step(m, batch, make_step)
+        dn = str(dtype).split(".")[-1]
+        log(f"  {tag} QAT step {mode} {dn}: loss {loss:.6f}, launches "
+            f"{counts}")
+        check(np.isfinite(loss), f"{tag} QAT {mode} {dn}: loss {loss}")
+        want = per_step if mode == "kernel" else counts_of()
+        check(counts == want, f"{tag} QAT {mode} {dn}: launches {counts}, "
+              f"expected {want}")
+        res[mode, dtype] = (loss, grads, ranges_of(m), counts)
+        del m
+        torch.cuda.empty_cache()
+    (l32, g32, r32, _), (lp, gp, rp, _), (lk, gk, rk, counts) = (
+        res["plain", f32], res["plain", bf16], res["kernel", bf16])
+    check(min(float(r.max()) for r in rk.values()) > 0.0,
+          f"{tag}: a range the step left at 0")
+    noise = abs(lp - l32)
+    log(f"  {tag} QAT loss kernel - plain bf16 {abs(lk - lp):.3e}, plain "
+        f"bf16 - f32 {noise:.3e}")
+    check(abs(lk - lp) <= 2.0 * noise + 1e-6 * abs(lp), f"{tag} QAT loss")
+    compare_grads(f"{tag} QAT kernel vs plain grads bfloat16", gk, gp, g32)
+    e, n = range_err(rk, rp), range_err(rp, r32)
+    log(f"  {tag} QAT ranges after the step: kernel vs plain bf16 {e:.3e} "
+        f"of the largest channel, plain bf16 vs f32 {n:.3e}")
+    check(e <= 2.0 * n + 1e-6, f"{tag} QAT ranges {e} vs noise {n}")
+    return counts
+
+
+def int8_flow(dev, x, quant, cv_impl, ranges_from):
+    """A bf16 PWCFlowNet in int8 mode with the seeded heads and the
+    ranges (and BatchNorm statistics) of ``ranges_from``."""
+    import torch
+
+    m = build(torch.bfloat16, dev, cv_impl=cv_impl, quant=quant)
+    m.load_state_dict(ranges_from.state_dict())
+    return m
+
+
+def emitted(model, name, store: list):
+    """A hook keeping the int8 codes of the QTensor the conv ``name``
+    emits; returns its handle."""
+    return model.get_submodule(name).register_forward_hook(
+        lambda mod, inp, out: store.append(out.q))
+
+
+def phase_quant(dev, x, batch, ibatch) -> dict:
+    """Phase 4h: the quantization slice (module docstring)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from qpwcnet_torch.apps import convert_quant, pretrain_interp, train_flow
+    from qpwcnet_torch.ops import cuda as kernels
+    from qpwcnet_torch.quantize import QuantConfig, load_int8_bundle
+    from qpwcnet_torch.train import make_interp_train_step
+
+    log("== phase 4h: the quantization slice")
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    qat = QuantConfig()
+    int8 = dataclasses.replace(qat, mode="int8")
+    paths = {}
+    steps = counts_of(K1=5, K4a=5, K4b=5)
+
+    paths["qat_train"] = qat_steps(
+        dev, lambda dt, cv: build_train(dt, dev, cv_impl=cv, quant=qat),
+        batch, None, steps, f"flow {TRAIN_H}x{TRAIN_W} b{TRAIN_B}")
+    paths["qat_pretrain"] = qat_steps(
+        dev, lambda dt, cv: build_interp(dt, dev, k=1.5, cv_impl=cv,
+                                         quant=qat),
+        ibatch, make_interp_train_step, steps,
+        f"pretraining {TRAIN_H}x{TRAIN_W} b{INTERP_B}")
+
+    # int8 inference at the headline: ranges from two QAT train-mode
+    # forwards of the bf16 model on this batch's halves
+    with torch.inference_mode():
+        calib = build(bf16, dev, cv_impl="auto", quant=qat).train()
+        for half in (x[:B // 2], x[B // 2:]):
+            calib(half)
+        calib.eval()
+        want = {}
+        # the finest head's first chained conv: its emitted int8 codes
+        chained = "flower.upflows.3.flow.of_feats.0.pointwise"
+        for mode, cv in (("exact", "plain"),
+                         ("fast", ("plain",) * 4 + ("fused",))):
+            codes = []
+            with plain_fused_warp():
+                ref = int8_flow(dev, x, int8, cv, calib)
+                hook = emitted(ref, chained, codes)
+                kernels.reset_launch_counts()
+                want[mode] = ref(x)
+                torch.cuda.synchronize()
+                check(kernels.launch_counts() == counts_of(),
+                      f"int8 plain {mode}: launches")
+                hook.remove()
+            got_m = int8_flow(dev, x, int8,
+                              "auto" if mode == "exact" else "fast", calib)
+            hook = emitted(got_m, chained, codes)
+            kernels.reset_launch_counts()
+            got = got_m(x)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            hook.remove()
+            expect = counts_of(K1=5) if mode == "exact" else \
+                counts_of(K1=4, K3=1)
+            log(f"  int8 {mode} bf16 {H}x{W} b{B}: launches {counts}, "
+                f"mean|flow|={float(got.abs().mean()):.3f} px")
+            check(counts == expect, f"int8 {mode}: launches {counts}, "
+                  f"expected {expect}")
+            paths[f"int8_infer_{mode}"] = counts
+            compare_model(f"int8 {mode} kernels vs plain bf16", got,
+                          want[mode], bf16)
+            d = (codes[1].int() - codes[0].int()).abs()
+            n, tot, dmax = int((d > 0).sum()), d.numel(), int(d.max())
+            log(f"  int8 {mode}: codes of the finest head's first chained "
+                f"conv (of_feats.0.pointwise) differing from the plain "
+                f"model's: {n} of {tot} ({n / tot:.3e}), at most {dmax}")
+            check(n <= QUANT_FLIP_SHARE * tot, f"int8 {mode}: {n} flips")
+            del ref, got_m, got, codes, d
+        fl = build(bf16, dev, cv_impl="auto")
+        fl.load_state_dict({k: v for k, v in calib.state_dict().items()
+                            if "amax" not in k})
+        f_out = fl(x)
+        for mode in ("exact", "fast"):
+            err = float((want[mode] - f_out).abs().mean())
+            log(f"  int8 {mode} (plain) vs the bf16 float model: "
+                f"mean|delta|={err:.4f} px "
+                f"({100 * err / float(f_out.abs().mean()):.1f}% of "
+                f"mean|flow|, convert_quant --check's measure)")
+        del calib, fl, f_out, want
+        torch.cuda.empty_cache()
+
+    # The apps: train_flow / pretrain_interp --qat, A 2 steps, B 1, C B
+    # resumed to 2: C's checkpoint must equal A's, ranges included.
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for app, name, b, extra in (
+                (train_flow, "qat_train_app", TRAIN_B,
+                 ["--data", "synthetic", "--curriculum", ""]),
+                (pretrain_interp, "qat_pretrain_app", INTERP_B, [])):
+            root = tmp / name
+            args = extra + [
+                "--qat", "true", "--batch-size", str(b), "--height",
+                str(TRAIN_H), "--width", str(TRAIN_W), "--compute-dtype",
+                "bfloat16", "--recalibrate-final", "0", "--log-every", "1",
+                "--ckpt-every", "1", "--device", str(dev), "--run-root",
+                str(root)]
+            kernels.reset_launch_counts()
+            app.main(args + ["--steps", "2"])
+            app.main(args + ["--steps", "1"])
+            app.main(args + ["--steps", "2", "--load-ckpt",
+                             str(root / "001" / "ckpt")])
+            torch.cuda.synchronize()
+            paths[name] = kernels.launch_counts()
+            a = load_ckpt(root / "000" / "ckpt", 2)
+            diff = state_diff(a, load_ckpt(root / "002" / "ckpt", 2))
+            n_ranges = sum("amax" in k for k in a["model"])
+            log(f"  {app.__name__.split('.')[-1]} --qat A 2 / B 1 / C B->2 "
+                f"steps (bf16 b{b}): C against A: {len(diff)} differing "
+                f"leaves {diff[:6]} ({n_ranges} ranges among them), "
+                f"launches {paths[name]}")
+            check(n_ranges >= 118 and not diff,
+                  f"{name}: resumed run differs: {diff}")
+            # each step and each log's held-out forward run K1
+            check(paths[name] == counts_of(K1=5 * 8, K4a=5 * 4, K4b=5 * 4),
+                  f"{name} launches {paths[name]}")
+
+        out = tmp / "int8.npz"
+        kernels.reset_launch_counts()
+        res = convert_quant.run(dataclasses.replace(
+            convert_quant.Settings(), steps=3, height=TRAIN_H,
+            width=TRAIN_W, out=str(out), device=str(dev)))
+        torch.cuda.synchronize()
+        paths["convert_quant"] = kernels.launch_counts()
+        loaded = load_int8_bundle(out)
+        same = list(loaded) == list(res["int8"]) and all(
+            np.array_equal(getattr(loaded[k], f), getattr(res["int8"][k], f))
+            for k in loaded for f in ("kernel_i8", "w_scale", "in_amax")
+            if getattr(loaded[k], f) is not None)
+        log(f"  convert_quant --steps 3 --check true at {TRAIN_H}x{TRAIN_W}: "
+            f"{res['n_convs']} convs, {res['n_int8_weights']} int8 weights, "
+            f"{out.stat().st_size} bytes; int8 vs float "
+            f"{res['check_pct']:.1f}% of mean|flow|; the bundle loads back "
+            f"equal: {same}; launches {paths['convert_quant']}")
+        check(same and res["n_convs"] == 69, "convert_quant bundle")
+        check(np.isfinite(res["check_pct"]), "convert_quant --check")
+        # 3 calibration steps, then the int8 and float forwards
+        check(paths["convert_quant"] == counts_of(K1=25, K4a=15, K4b=15),
+              f"convert_quant launches {paths['convert_quant']}")
+    log(f"  phase 4h took {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
+def quant_times(dev, x, batch) -> None:
+    """Phase 5's quantization rows: CUDA-event times of the int8 forward
+    (exact and 'fast') beside the bf16 float exact forward at the
+    headline, and of the QAT flow train step beside the float step at
+    256x512 b16 bf16."""
+    import dataclasses
+
+    import torch
+
+    from qpwcnet_torch.quantize import QuantConfig
+    from qpwcnet_torch.train import make_flow_train_step, plain_optimizer
+
+    bf16 = torch.bfloat16
+    qat = QuantConfig()
+    int8 = dataclasses.replace(qat, mode="int8")
+    with torch.inference_mode():
+        calib = build(bf16, dev, cv_impl="auto", quant=qat).train()
+        calib(x[:B // 2])
+        calib.eval()
+        rows = [("bf16 float exact", build(bf16, dev, cv_impl="auto"))]
+        rows += [(f"int8 {m}", int8_flow(dev, x, int8, cv, calib))
+                 for m, cv in (("exact", "auto"), ("fast", "fast"))]
+        for tag, m in rows:
+            log(f"  time: flow forward {tag} {H}x{W} b{B}: "
+                f"{time_ms(lambda: m(x)):.3f} ms")
+        del rows, calib
+    torch.cuda.empty_cache()
+    step = make_flow_train_step()
+    for tag, kw in (("float", {}), ("QAT", dict(quant=qat))):
+        m = build_train(bf16, dev, cv_impl="auto", **kw)
+        opt = plain_optimizer(m, 0.0)
+        log(f"  time: flow train step {tag} bf16 {TRAIN_H}x{TRAIN_W} "
+            f"b{TRAIN_B}: {time_ms(lambda: step(m, opt, batch), n=5):.3f} ms")
+        del m, opt
+        torch.cuda.empty_cache()
+
+
 def bound(nbytes: float, nops: float) -> tuple:
     """(bytes term, operations term) in ms: the least time the card could
     take to move nbytes through device memory and to do nops bf16
@@ -3113,15 +3394,17 @@ def main() -> int:
         ckpt_paths = phase_ckpt(dev, batch)
         fused_paths = phase_fused(dev, x, batch, ibatch)
         spatial_paths = phase_spatial(dev, x, batch)
+        quant_paths = phase_quant(dev, x, batch, ibatch)
     with tempfile.TemporaryDirectory() as data_root:
         data_paths = phase_data(dev, data_root)
         totals = phase_times(dev, x, batch, ibatch)
         data_times(dev, data_root)
+        quant_times(dev, x, batch)
     log(f"== all phases passed in {time.perf_counter() - t0:.1f} s")
 
     paths = {"infer_app": infer_counts, "train_app": train_counts,
              **interp_paths, **ckpt_paths, **fused_paths, **spatial_paths,
-             **data_paths}
+             **quant_paths, **data_paths}
     entries = []
     for name, meta in KERNELS.items():
         key = f"{name}_cuda"

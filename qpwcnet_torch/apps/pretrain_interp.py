@@ -29,11 +29,15 @@ step's loss, images/s and the ms a step waited on the loader, and the
 recalibration runs on further unaugmented batches. A resumed run starts
 the dataset again from its first epoch, as JAX's does.
 
+``--qat true`` pretrains the quantization-aware interpolator
+(``QuantConfig()``) in every data mode; its checkpoints carry the
+activation ranges, and ``--load-ckpt`` of a float run starts a QAT
+fine-tune from it.
+
 Run: python -m qpwcnet_torch.apps.pretrain_interp --steps 20
 
 Not ported yet, and refused with NotImplementedError rather than
-skipped: QAT (``--qat``) waits for ROADMAP queue 1, quantization, and
-``--debug-nan`` (JAX's NaN checker) has no counterpart yet.
+skipped: ``--debug-nan`` (JAX's NaN checker) has no counterpart yet.
 """
 
 from __future__ import annotations
@@ -72,6 +76,7 @@ class Settings:
     compute_dtype: str = "float32"  # or 'bfloat16'
     seed: int = 0
     debug_nan: bool = False
+    # quantization-aware training (QuantConfig()); ranges checkpointed
     qat: bool = False
     # BatchNorm recalibration passes at the end of training (0: none).
     recalibrate_final: int = 16
@@ -84,10 +89,6 @@ class Settings:
 def _refuse_unported(cfg: Settings) -> None:
     if cfg.data not in DATA_MODES:
         raise ValueError(f"unknown data source {cfg.data!r}")
-    if cfg.qat:
-        raise NotImplementedError(
-            "--qat: quantization-aware training waits for ROADMAP queue 1, "
-            "quantization")
     if cfg.debug_nan:
         raise NotImplementedError(
             "--debug-nan: the JAX NaN checker has no counterpart in the "
@@ -95,15 +96,18 @@ def _refuse_unported(cfg: Settings) -> None:
 
 
 def build_model(cfg: Settings) -> torch.nn.Module:
-    """The JAX app's model: build_interpolator with cv_impl='auto', from
-    cfg.seed (a torch.Generator: other initial values than JAX's key)."""
+    """The JAX app's model: build_interpolator with cv_impl='auto' (and
+    QuantConfig() under --qat), from cfg.seed (a torch.Generator: other
+    initial values than JAX's key)."""
     from qpwcnet_torch.models import build_interpolator
+    from qpwcnet_torch.quantize import QuantConfig
 
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else \
         torch.float32
     return build_interpolator(cfg.seed, torch.device(cfg.device),
                               dtype=dtype, head_scale=cfg.head_scale,
-                              residual=cfg.residual)
+                              residual=cfg.residual,
+                              quant=QuantConfig() if cfg.qat else None)
 
 
 def _batch(cfg: Settings, data_seed: int, aug_seed: int,

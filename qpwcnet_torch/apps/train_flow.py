@@ -37,10 +37,14 @@ resumed with ``--curriculum ''`` replays the uninterrupted one. With
 ``--transfer-from-interp true`` it instead copies the encoder, decoder
 and flower of a ``pretrain_interp`` checkpoint into the fresh model.
 
-Run: python -m qpwcnet_torch.apps.train_flow --data synthetic --steps 20
+``--qat true`` trains the quantization-aware model (``QuantConfig()``:
+fake-quantized convs, activation ranges updated by every train-mode
+forward), in every data mode; its checkpoints carry the ranges, and
+``--load-ckpt`` of a float run starts a QAT fine-tune from it (ranges
+from zero). ``apps/convert_quant.py`` turns a QAT checkpoint into the
+int8 bundle.
 
-Not ported yet, and refused with NotImplementedError rather than
-skipped: QAT (``--qat``) waits for ROADMAP queue 1, quantization.
+Run: python -m qpwcnet_torch.apps.train_flow --data synthetic --steps 20
 """
 
 from __future__ import annotations
@@ -91,19 +95,16 @@ class Settings:
     # 1/4- and 1/2-resolution warm-up stage steps ('' disables).
     curriculum: str = "5000,4000"
     seed: int = 0
+    # quantization-aware training (QuantConfig()); ranges checkpointed
     qat: bool = False
     # BatchNorm recalibration passes at the end of training (0: none).
     recalibrate_final: int = 16
     device: str = "cuda"
 
 
-def _refuse_unported(cfg: Settings) -> None:
+def _check_data(cfg: Settings) -> None:
     if cfg.data not in DATA_MODES:
         raise ValueError(f"unknown data source {cfg.data!r}")
-    if cfg.qat:
-        raise NotImplementedError(
-            "--qat: quantization-aware training waits for ROADMAP queue 1, "
-            "quantization")
 
 
 def _resolve_optimizer(cfg: Settings):
@@ -127,13 +128,16 @@ def _dtype(cfg: Settings) -> torch.dtype:
 
 
 def build_model(cfg: Settings) -> torch.nn.Module:
-    """The JAX app's model: build_flow_net with cv_impl='auto', from
-    cfg.seed (a torch.Generator: other initial values than JAX's key)."""
+    """The JAX app's model: build_flow_net with cv_impl='auto' (and
+    QuantConfig() under --qat), from cfg.seed (a torch.Generator: other
+    initial values than JAX's key)."""
     from qpwcnet_torch.models import build_flow_net
+    from qpwcnet_torch.quantize import QuantConfig
 
     return build_flow_net(cfg.seed, torch.device(cfg.device),
                           dtype=_dtype(cfg), head_scale=cfg.head_scale,
-                          residual=cfg.residual)
+                          residual=cfg.residual,
+                          quant=QuantConfig() if cfg.qat else None)
 
 
 def _batch(cfg: Settings, seed: int, h: int, w: int, disp: float,
@@ -447,7 +451,7 @@ def run(cfg: Settings):
     from qpwcnet_torch.train import CheckpointManager, MetricWriter
     from qpwcnet_torch.utils.runs import setup_run_dir, snapshot_config
 
-    _refuse_unported(cfg)
+    _check_data(cfg)
     paths = setup_run_dir(cfg.run_root)
     snapshot_config(paths["run"], cfg)
     print(f"run dir: {paths['run']}", file=sys.stderr)

@@ -3,8 +3,9 @@ PWCInterpolator.
 
 ``load_flax_variables(model, variables)`` takes the ``{'params',
 'batch_stats'}`` tree of ``qpwcnet_tpu.models.build_flow_net`` or
-``build_interpolator`` as nested dicts of numpy arrays
-(``jax.device_get`` of it) and copies every leaf into the model by name:
+``build_interpolator`` (with ``'quant_stats'`` for a quantized model) as
+nested dicts of numpy arrays (``jax.device_get`` of it) and copies every
+leaf into the model by name:
 
   * ``stage_i`` / ``upflow_i`` / ``of_feat_i`` / ``img_i`` ->
     ``stages.i`` / ``upflows.i`` / ``of_feats.i`` / ``imgs.i``; every
@@ -13,7 +14,10 @@ PWCInterpolator.
     (the same permutation), transpose-conv kernels (``conv_up``) flipped
     spatially and HWIO -> (I, O, kh, kw);
   * BatchNorm scale / bias / mean / var -> weight / bias / running_mean /
-    running_var.
+    running_var;
+  * the QAT ranges: ``.../conv_a/amax_in`` -> ``....conv_a.amax_in`` (0-d,
+    or a per-input-channel vector) and ``.../act_quant/amax`` ->
+    ``....act_quant.amax``.
 
 A leaf with no counterpart, a model tensor left unset, or a shape that
 does not match raises ValueError.
@@ -36,7 +40,9 @@ import torch.nn as nn
 
 _INDEXED = re.compile(r"^(stage|upflow|of_feat|img)_(\d+)$")
 _LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight",
-         "mean": "running_mean", "var": "running_var"}
+         "mean": "running_mean", "var": "running_var",
+         "amax_in": "amax_in", "amax": "amax"}
+COLLECTIONS = ("params", "batch_stats", "quant_stats")
 
 
 def _flatten(tree: Mapping[str, Any], prefix=()):
@@ -68,15 +74,16 @@ def _convert(path: tuple[str, ...], value: np.ndarray) -> np.ndarray:
 
 def load_flax_variables(model: nn.Module,
                         variables: Mapping[str, Any]) -> nn.Module:
-    """Copy a Flax ``{'params', 'batch_stats'}`` tree into ``model`` (in
-    place, on the model's device; parameters stay float32)."""
-    unknown = set(variables) - {"params", "batch_stats"}
+    """Copy a Flax ``{'params', 'batch_stats'[, 'quant_stats']}`` tree
+    into ``model`` (in place, on the model's device; parameters stay
+    float32)."""
+    unknown = set(variables) - set(COLLECTIONS)
     if unknown:
         raise ValueError(f"unexpected collections: {sorted(unknown)}")
     state = model.state_dict()
     seen = set()
     with torch.no_grad():
-        for coll in ("params", "batch_stats"):
+        for coll in COLLECTIONS:
             for path, value in _flatten(variables.get(coll, {})):
                 key = torch_key(path)
                 if key not in state:
@@ -88,7 +95,7 @@ def load_flax_variables(model: nn.Module,
                         f"{key}: Flax shape {np.shape(value)} maps to "
                         f"{tuple(arr.shape)}, model has "
                         f"{tuple(state[key].shape)}")
-                state[key].copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+                state[key].copy_(torch.from_numpy(arr.copy()))
                 seen.add(key)
     missing = set(state) - seen
     if missing:
@@ -97,10 +104,8 @@ def load_flax_variables(model: nn.Module,
     return model
 
 
-def _flax_path(model: nn.Module, key: str) -> tuple[str, ...]:
-    """A parameter's state_dict key -> its Flax path (inverse of
-    :func:`torch_key`)."""
-    *mods, leaf = key.split(".")
+def _module_path(mods: list[str]) -> list[str]:
+    """A module's state_dict key parts -> its Flax scope names."""
     path = []
     for p in mods:
         if p.isdigit() and path and path[-1] in ("stages", "upflows",
@@ -108,6 +113,14 @@ def _flax_path(model: nn.Module, key: str) -> tuple[str, ...]:
             path[-1] = f"{path[-1][:-1]}_{p}"
         else:
             path.append(p)
+    return path
+
+
+def _flax_path(model: nn.Module, key: str) -> tuple[str, ...]:
+    """A parameter's state_dict key -> its Flax path (inverse of
+    :func:`torch_key`)."""
+    *mods, leaf = key.split(".")
+    path = _module_path(mods)
     is_norm = "running_mean" in dict(
         model.get_submodule(".".join(mods)).named_buffers(recurse=False))
     names = {"weight": "scale" if is_norm else "kernel", "bias": "bias"}
@@ -152,6 +165,22 @@ def to_flax_tree(model: nn.Module, what: str = "params") -> dict:
         return t
 
     return _to_tree(model, tensor_of)
+
+
+def to_flax_quant_stats(model: nn.Module) -> dict:
+    """The model's QAT ranges as JAX's 'quant_stats' collection: a
+    Flax-shaped nested dict of float32 numpy arrays (empty for a float
+    model); the inverse of :func:`load_flax_variables` for it."""
+    tree: dict = {}
+    for key, buf in model.named_buffers():
+        *mods, leaf = key.split(".")
+        if leaf not in ("amax_in", "amax"):
+            continue
+        node = tree
+        for part in _module_path(mods):
+            node = node.setdefault(part, {})
+        node[leaf] = buf.detach().float().cpu().numpy().copy()
+    return tree
 
 
 def _is_adam(node) -> bool:

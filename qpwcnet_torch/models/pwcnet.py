@@ -7,12 +7,21 @@ build_interpolator.
 frame (PWCInterpolator) out, or the 6 multiscale outputs, coarse to
 fine, with ``multiscale=True``. Inside, tensors are logical NCHW in
 channels_last memory (qpwcnet_torch/layout.py).
+
+``quant`` (a ``quantize.QuantConfig``) quantizes every conv as in the JAX
+models: 'qat' fake-quantizes them and, in train mode, updates the
+activation ranges; 'int8' runs them in int8 arithmetic, the encoder
+stages chaining QTensors and handing the decoder and flow stack
+dequantized features. The fused stem and upconv kernels are float-only:
+the builders refuse ``stem_stages`` (and ``build_flow_net``
+``upconv_stages``) with ``quant``, and the Decoder runs its UpConv
+modules under ``quant``, as JAX's does.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
@@ -25,12 +34,15 @@ from qpwcnet_torch.models.blocks import (
     FrameInterpolate,
     UpConv,
     UpFlowBlock,
+    int8_mode,
 )
 from qpwcnet_torch.ops.cuda.stem_kernel import downconv_stage_trainable
 from qpwcnet_torch.ops.cuda.upconv_kernel import upconv_stage_trainable
 from qpwcnet_torch.ops.resize import avg_pool_2x, upsample2x_bilinear_nchw
 from qpwcnet_torch.parallel.transport import use_mesh
+from qpwcnet_torch.quantize.fake_quant import QuantConfig
 from qpwcnet_torch.quantize.qlayers import QConv, QConvTranspose
+from qpwcnet_torch.quantize.qtensor import dequantize
 
 ENCODER_FILTERS = (16, 32, 64, 128, 256)
 DECODER_FILTERS = (128, 64, 32, 16)
@@ -48,16 +60,24 @@ class Encoder(nn.Module):
     count. On the card the kernel is built for every width of
     ``ENCODER_FILTERS`` in float32 and bf16 (``STEM_CHANNELS``); a stage
     of another width raises at its launch.
+
+    In int8 mode (``quant``) the stages chain QTensors, and the pyramid
+    features are their dequantized values in ``dtype``.
     """
 
     def __init__(self, filters: Sequence[int] = ENCODER_FILTERS,
-                 dtype: torch.dtype = torch.float32, stem_stages: int = 0):
+                 dtype: torch.dtype = torch.float32, stem_stages: int = 0,
+                 quant: Optional[QuantConfig] = None):
         super().__init__()
+        if stem_stages and quant is not None:
+            raise ValueError("stem_stages requires the float path (no "
+                             "quant): the int8 chain keeps its own conv")
         self.dtype = dtype
         self.stem_stages = stem_stages
+        self.chain_q = int8_mode(quant)
         chans = [3, *filters]
         self.stages = nn.ModuleList(
-            DownConv(chans[i], chans[i + 1], dtype=dtype)
+            DownConv(chans[i], chans[i + 1], dtype=dtype, quant=quant)
             for i in range(len(filters)))
 
     def forward(self, img: torch.Tensor) -> list[torch.Tensor]:
@@ -69,8 +89,8 @@ class Encoder(nn.Module):
                 f = nchw(downconv_stage_trainable(nhwc(f).contiguous(),
                                                   stage.params(), self.dtype))
             else:
-                f = stage(f)
-            feats.append(f)
+                f = stage(f, emit_qtensor=self.chain_q)
+            feats.append(dequantize(f, self.dtype) if self.chain_q else f)
         return feats
 
 
@@ -84,19 +104,21 @@ class Decoder(nn.Module):
     tensors the forward is the unfused composition too, at any stage
     count. On the card the kernel is built for every width of
     ``DECODER_FILTERS`` in float32 and bf16 (``UPCONV_CHANNELS``); a
-    stage of another width raises at its launch.
+    stage of another width raises at its launch. Under ``quant`` every
+    stage runs its (quantized) UpConv module, as in JAX.
     """
 
     def __init__(self, filters: Sequence[int] = DECODER_FILTERS,
                  enc_filters: Sequence[int] = ENCODER_FILTERS,
-                 dtype: torch.dtype = torch.float32, upconv_stages: int = 0):
+                 dtype: torch.dtype = torch.float32, upconv_stages: int = 0,
+                 quant: Optional[QuantConfig] = None):
         super().__init__()
         self.dtype = dtype
-        self.upconv_stages = upconv_stages
+        self.upconv_stages = 0 if quant is not None else upconv_stages
         stages = []
         c = enc_filters[-1]
         for k, f in enumerate(filters):
-            stages.append(UpConv(c, f, dtype=dtype))
+            stages.append(UpConv(c, f, dtype=dtype, quant=quant))
             c = f + enc_filters[-2 - k]
         self.stages = nn.ModuleList(stages)
 
@@ -131,17 +153,19 @@ class Flower(nn.Module):
                  dec_ch: Sequence[int] = (256, 128, 64, 32),
                  dtype: torch.dtype = torch.float32,
                  cv_impl: CvImpl = "auto", head_scale: str = "diag",
-                 residual: bool = False, spatial=None):
+                 residual: bool = False, spatial=None,
+                 quant: Optional[QuantConfig] = None):
         super().__init__()
         self.num_levels = len(dec_ch)
         self.cv_impl = cv_impl if isinstance(cv_impl, str) else tuple(cv_impl)
         self.flow_0 = FlowBlock(enc_ch, dtype=dtype,
                                 cv_impl=self.impl_at(0),
-                                head_scale=head_scale, spatial=spatial)
+                                head_scale=head_scale, spatial=spatial,
+                                quant=quant)
         self.upflows = nn.ModuleList(
             UpFlowBlock(c, dtype=dtype, cv_impl=self.impl_at(i + 1),
                         head_scale=head_scale, residual=residual,
-                        spatial=spatial)
+                        spatial=spatial, quant=quant)
             for i, c in enumerate(dec_ch))
 
     def impl_at(self, i: int) -> str:
@@ -179,21 +203,26 @@ class PWCFlowNet(nn.Module):
     spatial: a ``parallel.SpatialConfig``: the model runs H-sharded over
     its mesh's 'model' axis (inputs from ``parallel.shard_batch_spatial``,
     outputs sharded alike); forward makes the mesh active for every op.
+
+    quant: a ``quantize.QuantConfig`` (module docstring).
     """
 
     def __init__(self, dtype: torch.dtype = torch.float32,
                  cv_impl: CvImpl = "auto", head_scale: str = "diag",
                  residual: bool = False, stem_stages: int = 0,
                  fuse_batch: bool = True, upconv_stages: int = 0,
-                 spatial=None):
+                 spatial=None, quant: Optional[QuantConfig] = None):
         super().__init__()
         self.fuse_batch = fuse_batch
         self.spatial = spatial
-        self.encoder = Encoder(dtype=dtype, stem_stages=stem_stages)
-        self.decoder = Decoder(dtype=dtype, upconv_stages=upconv_stages)
+        self.quant = quant
+        self.encoder = Encoder(dtype=dtype, stem_stages=stem_stages,
+                               quant=quant)
+        self.decoder = Decoder(dtype=dtype, upconv_stages=upconv_stages,
+                               quant=quant)
         self.flower = Flower(dtype=dtype, cv_impl=cv_impl,
                              head_scale=head_scale, residual=residual,
-                             spatial=spatial)
+                             spatial=spatial, quant=quant)
 
     def forward(self, inputs: torch.Tensor, multiscale: bool = False):
         if self.spatial is None:
@@ -241,23 +270,31 @@ class PWCInterpolator(nn.Module):
     flos_10 with (prv, nxt)). That is exact in eval mode; in train mode
     the flow heads' BatchNorm statistics are taken over the joint 2B
     direction batch instead of per direction, as in the JAX model.
+
+    quant: a ``quantize.QuantConfig`` (module docstring).
     """
 
     def __init__(self, dtype: torch.dtype = torch.float32,
                  cv_impl: CvImpl = "auto", head_scale: str = "diag",
                  residual: bool = False, stem_stages: int = 0,
-                 fuse_batch: bool = True, upconv_stages: int = 0):
+                 fuse_batch: bool = True, upconv_stages: int = 0,
+                 quant: Optional[QuantConfig] = None):
         super().__init__()
         self.fuse_batch = fuse_batch
-        self.encoder = Encoder(dtype=dtype, stem_stages=stem_stages)
-        self.decoder = Decoder(dtype=dtype, upconv_stages=upconv_stages)
+        self.quant = quant
+        self.encoder = Encoder(dtype=dtype, stem_stages=stem_stages,
+                               quant=quant)
+        self.decoder = Decoder(dtype=dtype, upconv_stages=upconv_stages,
+                               quant=quant)
         self.flower = Flower(dtype=dtype, cv_impl=cv_impl,
-                             head_scale=head_scale, residual=residual)
+                             head_scale=head_scale, residual=residual,
+                             quant=quant)
         dec_ch = [f + e for f, e in zip(DECODER_FILTERS,
                                         ENCODER_FILTERS[-2::-1])]
         self.imgs = nn.ModuleList(
-            [FrameInterpolate(3, up=False, dtype=dtype)]
-            + [FrameInterpolate(c, up=True, dtype=dtype) for c in dec_ch])
+            [FrameInterpolate(3, up=False, dtype=dtype, quant=quant)]
+            + [FrameInterpolate(c, up=True, dtype=dtype, quant=quant)
+               for c in dec_ch])
 
     def forward(self, inputs: torch.Tensor, multiscale: bool = False,
                 return_flows: bool = False):
@@ -356,23 +393,32 @@ def build_flow_net(seed: int = 0, device: Union[str, torch.device] = "cuda",
                    cv_impl: CvImpl = "auto", stem_stages: int = 0,
                    head_scale: str = "diag", residual: bool = False,
                    fuse_batch: bool = True, upconv_stages: int = 0,
-                   spatial=None) -> PWCFlowNet:
+                   spatial=None,
+                   quant: Optional[QuantConfig] = None) -> PWCFlowNet:
     """Construct a PWCFlowNet on ``device`` (the card unless the caller
     asks for the CPU) with float32 parameters drawn from ``seed``,
     computing in ``dtype``; returned in eval mode.
 
     spatial: a ``parallel.SpatialConfig`` for the H-sharded path (the
     parameters are the same with or without it). The fused stem and
-    upconv kernels are not shard-aware, so ``stem_stages`` and
-    ``upconv_stages`` refuse it, as JAX's build_flow_net does."""
-    if (stem_stages or upconv_stages) and spatial is not None:
+    upconv kernels are not shard-aware and float-only, so
+    ``stem_stages`` and ``upconv_stages`` refuse ``spatial`` and
+    ``quant``, as JAX's build_flow_net does. quant: a
+    ``quantize.QuantConfig``; its ranges start at 0 (int8 execution under
+    ``spatial`` is refused: ROADMAP queue 1)."""
+    if (stem_stages or upconv_stages) and (
+            quant is not None or spatial is not None):
         raise ValueError(
-            "stem_stages and upconv_stages need the unsharded model: the "
-            "fused stem and upconv kernels are not H-shard-aware")
+            "stem_stages and upconv_stages need the float path (no quant) "
+            "and the unsharded model: the fused stem and upconv kernels "
+            "are float-only and not H-shard-aware")
+    if spatial is not None and int8_mode(quant):
+        raise NotImplementedError(
+            "int8 execution under an H-sharded mesh: ROADMAP queue 1")
     model = PWCFlowNet(dtype=dtype, cv_impl=cv_impl, head_scale=head_scale,
                        residual=residual, stem_stages=stem_stages,
                        fuse_batch=fuse_batch, upconv_stages=upconv_stages,
-                       spatial=spatial)
+                       spatial=spatial, quant=quant)
     init_weights(model, seed, head_scale)
     return model.to(device).eval()
 
@@ -383,15 +429,18 @@ def build_interpolator(seed: int = 0,
                        cv_impl: CvImpl = "auto", head_scale: str = "diag",
                        residual: bool = False, fuse_batch: bool = True,
                        stem_stages: int = 0,
-                       upconv_stages: int = 0) -> PWCInterpolator:
+                       upconv_stages: int = 0,
+                       quant: Optional[QuantConfig] = None
+                       ) -> PWCInterpolator:
     """Construct a PWCInterpolator on ``device`` (the card unless the
     caller asks for the CPU) with float32 parameters drawn from ``seed``,
     computing in ``dtype``; returned in eval mode. (JAX's
     build_interpolator has no ``upconv_stages``; its module has the
-    field.)"""
+    field, which ``quant`` turns off.) ``stem_stages`` refuses
+    ``quant`` (the Encoder raises ValueError), as JAX's does."""
     model = PWCInterpolator(dtype=dtype, cv_impl=cv_impl,
                             head_scale=head_scale, residual=residual,
                             stem_stages=stem_stages, fuse_batch=fuse_batch,
-                            upconv_stages=upconv_stages)
+                            upconv_stages=upconv_stages, quant=quant)
     init_weights(model, seed, head_scale)
     return model.to(device).eval()

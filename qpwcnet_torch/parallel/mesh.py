@@ -73,6 +73,15 @@ class Mesh:
         return t if self.group is None else AllSum.apply(t, self.group)
 
     @torch.no_grad()
+    def all_max(self, t: torch.Tensor) -> torch.Tensor:
+        """t's elementwise maximum over every process of the mesh (the
+        QAT ranges' batch absmax), a new tensor."""
+        t = t.clone()
+        if self.group is not None:
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        return t
+
+    @torch.no_grad()
     def reduce_grads(self, model: torch.nn.Module) -> None:
         """Every parameter's ``.grad`` summed over the model axis and
         averaged over the data axis, in one all-reduce, in place."""

@@ -3,11 +3,13 @@ qpwcnet_tpu/train/checkpoint.py).
 
 :class:`CheckpointManager` keeps ``dir/<step>/state.pt``: the step, the
 model's ``state_dict()`` (float32 parameters and the BatchNorm running
-statistics) and the optimizer chain's Adam state; at most
-``max_to_keep`` of them, the oldest deleted. JAX keeps the same four
-parts in an Orbax checkpoint. :func:`transfer_params` copies the
-subtrees PWCFlowNet and PWCInterpolator share. ``quant_stats`` waits for
-ROADMAP queue 1, quantization.
+statistics, and a QAT model's activation ranges, JAX's 'quant_stats')
+and the optimizer chain's Adam state; at most ``max_to_keep`` of them, the
+oldest deleted. JAX keeps the same parts in an Orbax checkpoint. A float
+checkpoint restores into a QAT model (a QAT fine-tune of a float run):
+the model keeps its own ranges, zero on a fresh model, as JAX's restore
+keeps its template's. :func:`transfer_params` copies the subtrees
+PWCFlowNet and PWCInterpolator share.
 """
 
 from __future__ import annotations
@@ -21,7 +23,25 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
+from qpwcnet_torch.quantize.qlayers import quant_ranges
+
 STATE_FILE = "state.pt"
+
+
+def load_model_state(model: nn.Module, state: dict) -> None:
+    """``model.load_state_dict(state)``, strict, except that a float
+    state (no ranges) loads into a QAT model, whose ranges stay as they
+    are."""
+    ranges = quant_ranges(model)
+    if not ranges or any(k in state for k in ranges):
+        model.load_state_dict(state)
+        return
+    missing, unexpected = model.load_state_dict(state, strict=False)
+    if unexpected or set(missing) != set(ranges):
+        raise RuntimeError(
+            f"checkpoint does not match the model: missing "
+            f"{sorted(set(missing) - set(ranges))[:4]}, unexpected "
+            f"{sorted(unexpected)[:4]}")
 
 
 class CheckpointManager:
@@ -89,7 +109,7 @@ class CheckpointManager:
         state = self._load(step, _device_of(model))
         if state is None:
             return None
-        model.load_state_dict(state["model"])
+        load_model_state(model, state["model"])
         optimizer.load_state_dict(state["optimizer"])
         optimizer.global_step = int(state["step"])
         return optimizer.global_step
@@ -103,7 +123,7 @@ class CheckpointManager:
         state = self._load(step, _device_of(model))
         if state is None:
             return None
-        model.load_state_dict(state["model"])
+        load_model_state(model, state["model"])
         return int(state["step"])
 
     def wait(self) -> None:

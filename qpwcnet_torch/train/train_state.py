@@ -1,9 +1,12 @@
 """The training steps (port of qpwcnet_tpu/train/train_state.py): the
 supervised flow step and the frame-interpolation pretraining step.
 
-The JAX TrainState pytree becomes the model itself (parameters and
-BatchNorm running statistics) and a :class:`GradientChain`, the optax
-chain over the model's ``.grad``: NaN scrub -> [AGC] -> Adam.
+The JAX TrainState pytree becomes the model itself (parameters,
+BatchNorm running statistics and, for a QAT model, the activation ranges
+of its 'quant_stats') and a :class:`GradientChain`, the optax chain over
+the model's ``.grad``: NaN scrub -> [AGC] -> Adam. A QAT model's train
+steps update its ranges in the forward, before they are used (JAX's
+mutable 'quant_stats').
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import torch
 import torch.nn as nn
 
 from qpwcnet_torch.parallel.mesh import reduce_active_grads
+from qpwcnet_torch.quantize.qlayers import quant_ranges
 from qpwcnet_torch.train.agc import adaptive_clip_grads, zero_nan_grads
 from qpwcnet_torch.train.losses import (
     epe_error,
@@ -151,13 +155,20 @@ def recalibrate_batch_stats(model: nn.Module,
                             batches: Iterable[torch.Tensor],
                             n_passes: int = 200) -> nn.Module:
     """Re-estimate the BatchNorm running statistics with train-mode
-    forwards over up to ``n_passes`` input batches; the parameters are
-    untouched and the model's train/eval mode is restored."""
+    forwards over up to ``n_passes`` input batches; the parameters and a
+    QAT model's ranges are untouched and the model's train/eval mode is
+    restored. As in JAX, which discards the mutated 'quant_stats', each
+    pass's forward quantizes with the ranges its own update gives, and
+    the ranges are then put back."""
+    ranges = quant_ranges(model)
+    saved = {k: b.clone() for k, b in ranges.items()}
     was_training = model.training
     model.train()
     for i, ims in enumerate(batches):
         if i >= n_passes:
             break
         model(ims)
+        for k, b in ranges.items():
+            b.copy_(saved[k])
     model.train(was_training)
     return model

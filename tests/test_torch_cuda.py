@@ -1014,3 +1014,85 @@ def test_haloed_wrappers_validate_shapes(dev):
         cost_volume_bwd_prv_haloed_cuda(dacc, prv)
     with pytest.raises(ValueError):
         cost_volume_bwd_nxt_haloed_cuda(dacc, prv[:, :7].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense_s1", "dense_s2", "conv_a",
+                                  "pointwise_co2", "pointwise_co3",
+                                  "depthwise", "transpose"])
+def test_int8_conv_card_equals_cpu(dev, kind):
+    """The int8 convs' int32 accumulation on the card (im2col through
+    torch._int_mm, K and N padded to multiples of 8; the depthwise's
+    shifted int32 multiply-adds) equals the CPU's int32 product exactly,
+    at full-range codes: the RGB conv_a (K = 27), the 2- and 3-channel
+    outputs of of_flow and conv2, and batch 1 at a map of 3x5 (M = 15
+    rows, padded to 17)."""
+    from qpwcnet_torch.quantize.int8 import int8_conv_int32
+
+    kh, stride, groups, transpose, ci, co, shape = {
+        "dense_s1": (3, 1, 1, False, 24, 20, (2, 10, 14)),
+        "dense_s2": (3, 2, 1, False, 16, 32, (2, 11, 14)),
+        "conv_a": (3, 2, 1, False, 3, 16, (2, 32, 64)),
+        "pointwise_co2": (3, 1, 1, False, 16, 2, (1, 3, 5)),
+        "pointwise_co3": (1, 1, 1, False, 64, 3, (2, 9, 13)),
+        "depthwise": (3, 1, 40, False, 40, 40, (2, 9, 13)),
+        "transpose": (4, 2, 1, True, 48, 16, (2, 5, 7))}[kind]
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randint(-128, 128, (*shape, ci)).astype(np.int8))
+    k = torch.from_numpy(rng.randint(
+        -128, 128, (kh, kh, ci // groups, co)).astype(np.int8))
+    want = int8_conv_int32(x, k, stride, groups, transpose)
+    got = int8_conv_int32(x.to(dev), k.to(dev), stride, groups, transpose)
+    assert got.dtype == torch.int32 and got.is_cuda
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 5, 15, 16, 17, 24, 31, 33, 100, 4097])
+def test_int8_matmul_card_equals_cpu(dev, m):
+    """int8_matmul (torch._int_mm, M, K and N padded, the kernel matrix
+    column-major) at the row counts of small maps, at counts that are no
+    multiple of 32 (which cuBLASLt's row-major int8 GEMM refuses) and at
+    inner / output dims that are no multiple of 8 (the RGB conv_a's K 27,
+    of_flow's N 2, conv2's N 3) equals the CPU's int32 product
+    exactly."""
+    from qpwcnet_torch.quantize.int8 import int8_matmul
+
+    rng = np.random.RandomState(m)
+    for k, n in ((27, 16), (64, 32), (144, 2), (576, 3), (1024, 128)):
+        a = torch.from_numpy(rng.randint(-128, 128, (m, k)).astype(np.int8))
+        b = torch.from_numpy(rng.randint(-128, 128, (k, n)).astype(np.int8))
+        got = int8_matmul(a.to(dev), b.to(dev))
+        assert tuple(got.shape) == (m, n) and got.dtype == torch.int32
+        assert torch.equal(got.cpu(), int8_matmul(a, b)), (m, k, n)
+
+
+@pytest.mark.cuda
+def test_int8_model_card_matches_cpu(dev):
+    """The int8 flow net ('unit' heads, non-zero flows; QAT ranges from
+    two train-mode CPU forwards) on the card against the same model on
+    the CPU, float32: the int8
+    products are exact, so the flows agree to float32 rounding of the
+    float ops around them, with a few codes flipped (1e-3 of the flow
+    magnitude, relative L2)."""
+    import dataclasses
+
+    from qpwcnet_torch.quantize import QuantConfig
+
+    torch.manual_seed(0)
+    qat = build_flow_net(0, "cpu", head_scale="unit",
+                         quant=QuantConfig()).train()
+    x = torch.rand(2, 64, 128, 6) - 0.5
+    with torch.no_grad():
+        for _ in range(2):
+            qat(x)
+    int8 = dataclasses.replace(QuantConfig(), mode="int8")
+    cpu = build_flow_net(0, "cpu", head_scale="unit", quant=int8)
+    cpu.load_state_dict(qat.state_dict())
+    card = build_flow_net(0, dev, head_scale="unit", quant=int8)
+    card.load_state_dict(qat.state_dict())
+    with torch.no_grad():
+        want = cpu(x)
+        got = card(x.to(dev)).cpu()
+    assert float(want.abs().mean()) > 0.0
+    assert float((got - want).norm()) <= 1e-3 * float(want.norm())

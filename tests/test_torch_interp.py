@@ -418,8 +418,7 @@ def test_pretrain_app_runs_on_cpu(capsys, tmp_path):
     assert f"run dir: {tmp_path / '000'}" in err
 
 
-@pytest.mark.parametrize("extra", [["--qat", "true"],
-                                   ["--debug-nan", "true"]])
+@pytest.mark.parametrize("extra", [["--debug-nan", "true"]])
 def test_pretrain_app_refuses_unported_modes(tmp_path, extra):
     with pytest.raises(NotImplementedError):
         pretrain_interp.main(APP_ARGS + ["--steps", "2", "--run-root",

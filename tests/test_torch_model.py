@@ -243,6 +243,7 @@ def test_port_imports_no_jax(check):
             "qpwcnet_torch.train, qpwcnet_torch.data, "
             "qpwcnet_torch.data.sintel, qpwcnet_torch.apps.train_flow, "
             "qpwcnet_torch.apps.pretrain_interp, "
+            "qpwcnet_torch.apps.convert_quant, qpwcnet_torch.quantize, "
             "qpwcnet_torch.apps.interp_infer, "
             "qpwcnet_torch.apps.eval_sintel, qpwcnet_torch.utils.runs, "
             "qpwcnet_torch.train.checkpoint, qpwcnet_torch.train.metrics, "

@@ -108,11 +108,3 @@ def test_train_app_runs_on_cpu(capsys, tmp_path):
     assert "skip 1/4 stage" in err and "step 2: loss=" in err
     assert "epe_eval=" in err and "recalibrated BN stats" in err
     assert f"run dir: {tmp_path / '000'}" in err
-
-
-@pytest.mark.parametrize("extra", [["--qat", "true"]])
-def test_train_app_refuses_unported_modes(tmp_path, extra):
-    with pytest.raises(NotImplementedError):
-        train_flow.main(APP_ARGS + ["--steps", "2", "--run-root",
-                                    str(tmp_path)] + extra)
-    assert not any(tmp_path.iterdir())
