@@ -125,6 +125,24 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      --data vimeo | ytvos | dummy (b8) and interp_infer --data vimeo (14
      PNGs); and data_tools stats, nan-scan (it must report the NaN
      sample) and preview.
+  4h. the quantization slice (the block comment above phase_quant).
+  4i. the last slice (under cudnn.deterministic): show_network on the
+     flow net at 448x1024 and the interpolator at 256x512 (b1 bf16, with
+     --trace-dir under chiprun_out/show_network/): its launches, the
+     trace naming K1's kernel, and its flops equal to the CPU's count of
+     the same forward plus K1's registered formula; pretrain_interp
+     --debug-nan (2 steps, 256x512 b8 bf16) with its logged metrics
+     bit-equal to the run without the flag, and the debug step raising
+     FloatingPointError on a batch with one NaN pixel; the int8 forward at
+     448x1024 b8 exact in 2 local H shards (its convs exchanging int8
+     halo rows, K1's haloed mode) against the unsharded int8 forward;
+     convert_quant --export at 448x1024 b1 (exact through the app, 'fast'
+     through export_int8): the graphs hold qpwcnet::cost_volume x5 (x4
+     and qpwcnet::warp_cost_volume x1) and each loaded .pt2 runs on the
+     card bit-equal to the eager int8 forward; the last ops and losses on
+     the card against the CPU at 448x1024 b8 float32. Main paths:
+     show_network_flow, show_network_interp, debug_nan_pretrain,
+     int8_spatial_infer and int8_export.
   5. times: CUDA events after warm-up, median of N: each kernel against
      its plain version at the headline shapes (K4a and K4b at the training
      levels, K5 at its six shapes, with its achieved GB/s), beside its
@@ -151,7 +169,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      phase 4g's fixtures: host decoding a sample, the augmentation's card
      time a batch and the batch's host-to-card copy, and the train_flow
      step fed from the FlyingThings3D loader beside the step on synthetic
-     batches (wall time in turns) with its wait on the loader.
+     batches (wall time in turns) with its wait on the loader; the int8
+     forwards (exact, 'fast', exact in 2 local H shards) beside the bf16
+     one and the QAT step beside the float one; show_network's forward
+     times and TFLOP/s from phase 4i.
 
 The line before the card line is a JSON object with one entry per kernel:
 its launches summed over the main paths' runs (each run with the counts
@@ -2587,21 +2608,417 @@ def phase_quant(dev, x, batch, ibatch) -> dict:
     return paths
 
 
+# The last slice (phase 4i): show_network with the profiling tools, the
+# pretraining app's --debug-nan, the int8 forward on the H-sharded path,
+# convert_quant --export on the card through the kernels' custom ops, and
+# the last ops and losses on the card against the CPU.
+LAST_FLIP_SHARE = 1e-3  # int8 codes the sharded forward may flip (0.1%)
+EXPORT_HW = (H, W)      # convert_quant --export: the headline at batch 1
+
+
+def k1_flops(levels, batch) -> int:
+    """K1's registered flop formula (2·81·C a pixel) summed over one
+    forward's five cost volumes, ``batch`` images a level."""
+    return sum(2 * 81 * c * batch * h * w for h, w, c in levels)
+
+
+def graph_ops(exported) -> dict:
+    """The calls of the kernels' custom ops in an ExportedProgram (its
+    graph and any subgraph of it), by op name."""
+    counts = {"qpwcnet.cost_volume": 0, "qpwcnet.warp_cost_volume": 0}
+    for gm in exported.graph_module.modules():
+        graph = getattr(gm, "graph", None)
+        for node in (graph.nodes if graph is not None else ()):
+            name = str(node.target)
+            for op in counts:
+                if node.op == "call_function" and name.startswith(op + "."):
+                    counts[op] += 1
+    return counts
+
+
+def show_network_path(dev, model, hw, levels, k1_batch) -> tuple:
+    """show_network at hw, batch 1, bf16 (--trace-dir under chiprun_out/):
+    its launches (a forward each for cost_analysis, time_fn's 2 + 10 and
+    the trace), the trace naming K1's bf16 kernel, and its flops equal to
+    the same forward's on the CPU (the kernels' plain versions, which the
+    counter does not count) plus K1's formula. Returns (launches, the
+    app's numbers)."""
+    import io
+    import re
+
+    import torch
+
+    from qpwcnet_torch.apps import show_network
+    from qpwcnet_torch.models import build_flow_net, build_interpolator
+    from qpwcnet_torch.ops import cuda as kernels
+    from qpwcnet_torch.utils.profiling import CATEGORIES, cost_analysis
+
+    trace_dir = ROOT / "chiprun_out" / "show_network" / model
+    cfg = show_network.Settings(model=model, height=hw[0], width=hw[1],
+                                trace_dir=str(trace_dir),
+                                compute_dtype="bfloat16", device=str(dev))
+    kernels.reset_launch_counts()
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        res = show_network.run(cfg)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    lines = said.getvalue().splitlines()
+    log(f"  show_network {model} {hw[0]}x{hw[1]} b1 bf16: {res['params']:,}"
+        f" params, {lines[-2]}; {lines[-1]}; launches {counts}")
+    check(f"TOTAL: {res['params']:,} params" in lines,
+          f"show_network {model}: no TOTAL line")
+    check(counts == counts_of(K1=5 * 14), f"show_network {model}: "
+          f"launches {counts}, expected K1 5 x 14 forwards")
+    traces = sorted(trace_dir.glob("*.pt.trace.json"))
+    check(bool(traces), f"show_network {model}: no trace in {trace_dir}")
+    events = json.loads(traces[-1].read_text())["traceEvents"]
+    k1 = dict(CATEGORIES)["K1"]
+    n_k1 = sum(1 for e in events if e.get("cat") == "kernel"
+               and re.search(k1, e.get("name", "")))
+    log(f"  show_network {model}: trace {traces[-1].name} "
+        f"({traces[-1].stat().st_size} bytes), {n_k1} K1 kernel events")
+    check(n_k1 == 5, f"show_network {model}: trace K1 events {n_k1}")
+    build_cpu = build_flow_net if model == "flow" else build_interpolator
+    cpu = cost_analysis(build_cpu(0, "cpu"),
+                        torch.zeros((1, *hw, 6), dtype=torch.float32))
+    extra = k1_flops(levels, k1_batch)
+    log(f"  show_network {model}: card flops {res['flops']:.0f} = CPU "
+        f"{cpu['flops']:.0f} + K1's formula {extra}; bytes card "
+        f"{res['bytes']:.0f}, CPU {cpu['bytes accessed']:.0f}")
+    check(res["flops"] == cpu["flops"] + extra,
+          f"show_network {model}: flops {res['flops']} vs "
+          f"{cpu['flops'] + extra}")
+    return counts, res
+
+
+def debug_nan_path(dev, ibatch, root) -> dict:
+    """pretrain_interp --debug-nan true against the run without it (2
+    synthetic steps at 256x512 b8 bf16, a log each step): the logged
+    metrics bit-equal; then the debug step on ibatch with one NaN pixel
+    raises FloatingPointError before the optimizer. Returns the debug
+    run's launches."""
+    import torch
+
+    from qpwcnet_torch.apps import pretrain_interp
+    from qpwcnet_torch.ops import cuda as kernels
+    from qpwcnet_torch.train import (
+        create_interp_train_state,
+        make_interp_train_step,
+    )
+
+    logged = {}
+    for flag in ("false", "true"):
+        run_root = root / f"debug_nan_{flag}"
+        args = ["--steps", "2", "--batch-size", str(INTERP_B), "--height",
+                str(TRAIN_H), "--width", str(TRAIN_W), "--compute-dtype",
+                "bfloat16", "--recalibrate-final", "0", "--log-every", "1",
+                "--ckpt-every", "100", "--device", str(dev), "--run-root",
+                str(run_root), "--debug-nan", flag]
+        kernels.reset_launch_counts()
+        pretrain_interp.main(args)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        lines = (run_root / "000" / "log" / "metrics.jsonl").read_text()
+        logged[flag] = [{k: v for k, v in json.loads(s).items()
+                         if k not in ("images_per_sec", "time")}
+                        for s in lines.splitlines()]
+    log(f"  pretrain_interp --debug-nan true, 2 steps bf16 "
+        f"{TRAIN_H}x{TRAIN_W} b{INTERP_B}: losses "
+        f"{[m['loss'] for m in logged['true']]}, without the flag "
+        f"{[m['loss'] for m in logged['false']]}; launches {counts}")
+    check(len(logged["true"]) == 2 and logged["true"] == logged["false"],
+          "--debug-nan: the logged metrics differ from the run without it")
+    # 2 steps and 2 held-out eval forwards
+    check(counts == counts_of(K1=20, K4a=10, K4b=10),
+          f"--debug-nan launches {counts}")
+
+    model = build_interp(torch.bfloat16, dev, k=1.5)
+    chain = create_interp_train_state(model, 1e-4)
+    params = {k: p.detach().clone() for k, p in model.named_parameters()}
+    bad = {k: v.clone() for k, v in ibatch.items()}
+    bad["ims"][-1, TRAIN_H // 3, TRAIN_W // 5, 4] = float("nan")
+    raised = None
+    try:
+        make_interp_train_step(debug_nan=True)(model, chain, bad)
+    except FloatingPointError as e:
+        raised = str(e)
+    log(f"  --debug-nan on a batch with one NaN pixel: "
+        f"FloatingPointError({raised!r})")
+    check(raised is not None, "--debug-nan: a NaN batch did not raise")
+    check(chain.global_step == 0 and all(
+        torch.equal(p, params[k]) for k, p in model.named_parameters()),
+        "--debug-nan: the optimizer ran on a NaN batch")
+    del model, chain
+    torch.cuda.empty_cache()
+    return counts
+
+
+def int8_calibrated(dev, x):
+    """The bf16 QAT flow model with ranges from two train-mode forwards
+    on x's halves (phase 4h's calibration)."""
+    import torch
+
+    from qpwcnet_torch.quantize import QuantConfig
+
+    calib = build(torch.bfloat16, dev, cv_impl="auto",
+                  quant=QuantConfig()).train()
+    half = x.shape[0] // 2
+    with torch.inference_mode():
+        for part in ((x[:half], x[half:]) if half else (x, x)):
+            calib(part)
+    return calib.eval()
+
+
+def int8_spatial_path(dev, x, calib) -> dict:
+    """The int8 forward at 448x1024 b8 exact in 2 local H shards against
+    the unsharded int8 forward on the card: phase 4f's bf16 rule for the
+    flow, the codes of the finest head's first chained conv within
+    LAST_FLIP_SHARE, the haloed K1 launches. Returns the launches."""
+    import dataclasses
+
+    import torch
+
+    from qpwcnet_torch.ops import cuda as kernels
+    from qpwcnet_torch.parallel import (
+        SpatialConfig, make_mesh, make_spatial_forward, shard_batch_spatial,
+        unshard_batch_spatial)
+    from qpwcnet_torch.quantize import QuantConfig
+
+    int8 = dataclasses.replace(QuantConfig(), mode="int8")
+    n, halo = SPATIAL_N_FWD, SPATIAL_HALO_FWD
+    mesh = make_mesh(n_data=1, n_model=n)
+    chained = "flower.upflows.3.flow.of_feats.0.pointwise"
+    with torch.inference_mode():
+        ref = int8_flow(dev, x, int8, "auto", calib)
+        codes = []
+        hook = emitted(ref, chained, codes)
+        want = ref(x)
+        hook.remove()
+        sp = build(torch.bfloat16, dev, cv_impl="auto", quant=int8,
+                   spatial=SpatialConfig(mesh, warp_halo=halo))
+        sp.load_state_dict(calib.state_dict())
+        hook = emitted(sp, chained, codes)
+        fwd = make_spatial_forward(lambda m, ims: m(ims), mesh)
+        kernels.reset_launch_counts()
+        out = fwd(sp, shard_batch_spatial(x, mesh))
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        hook.remove()
+        got = unshard_batch_spatial(out, mesh)
+        log(f"  int8 exact sharded {H}x{W} b{B} in {n} shards: launches "
+            f"{counts}")
+        check(counts == spatial_counts(H, n), f"int8 sharded: launches "
+              f"{counts}, expected {spatial_counts(H, n)}")
+        check(counts["cost_volume_haloed_cuda"] > 0, "int8 sharded: no "
+              "haloed K1 launch")
+        compare_model("int8 sharded vs unsharded bf16", got, want,
+                      torch.bfloat16)
+        whole = mesh.model.gather(codes[1], 2)
+        d = (whole.int() - codes[0].int()).abs()
+        nd, tot = int((d > 0).sum()), d.numel()
+        log(f"  int8 sharded: codes of {chained} differing from the "
+            f"unsharded model's: {nd} of {tot} ({nd / tot:.3e}), at most "
+            f"{int(d.max())}")
+        check(nd <= LAST_FLIP_SHARE * tot, f"int8 sharded: {nd} flips")
+    del ref, sp, want, got, codes
+    torch.cuda.empty_cache()
+    return counts
+
+
+def export_path(dev, root) -> dict:
+    """convert_quant --export on the card at 448x1024 b1 (exact, the
+    app's own run: 3 calibration steps, the bundle, the check, the
+    export) and the 'fast' int8 model through export_int8: each graph
+    holds the kernels' ops (exact: qpwcnet::cost_volume x5; 'fast': x4
+    and qpwcnet::warp_cost_volume x1), and each loaded .pt2 runs on the
+    card bit-equal to the eager int8 forward holding the program's
+    state. Returns the launches of both (the app's, and the loaded
+    programs' runs)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from qpwcnet_torch.apps import convert_quant
+    # importing the kernels registers their ops, which the load needs
+    from qpwcnet_torch.ops import cuda as kernels
+    from qpwcnet_torch.quantize import QuantConfig
+
+    int8 = dataclasses.replace(QuantConfig(), mode="int8")
+    h, w = EXPORT_HW
+    x1 = torch.from_numpy(np.random.RandomState(1).uniform(
+        -0.5, 0.5, (1, h, w, 6)).astype(np.float32)).to(dev)
+    total = counts_of()
+    for mode in ("exact", "fast"):
+        path = root / f"int8_{mode}.pt2"
+        t0 = time.perf_counter()
+        kernels.reset_launch_counts()
+        if mode == "exact":
+            convert_quant.run(dataclasses.replace(
+                convert_quant.Settings(), steps=3, height=h, width=w,
+                out=str(root / "int8.npz"), export=str(path),
+                device=str(dev)))
+        else:
+            calib = int8_calibrated(dev, x1)
+            model = build(torch.float32, dev, hw=(h, w), cv_impl="fast",
+                          quant=int8)
+            model.load_state_dict(calib.state_dict())
+            convert_quant.export_int8(model, path, x1)
+            del calib, model
+        t_export = time.perf_counter() - t0
+        exported = torch.export.load(str(path))
+        ops = graph_ops(exported)
+        want_ops = {"qpwcnet.cost_volume": 5 if mode == "exact" else 4,
+                    "qpwcnet.warp_cost_volume": 0 if mode == "exact" else 1}
+        log(f"  convert_quant --export {mode} {h}x{w} b1: {path.stat().st_size}"
+            f" bytes, {len(exported.graph.nodes)} nodes, custom ops {ops} "
+            f"({t_export:.1f} s to here)")
+        check(ops == want_ops, f"export {mode}: ops {ops}, expected "
+              f"{want_ops}")
+        eager = build(torch.float32, dev, hw=(h, w), k=0, quant=int8,
+                      cv_impl="auto" if mode == "exact" else "fast")
+        missing, _ = eager.load_state_dict(exported.state_dict,
+                                           strict=False)
+        check(not missing, f"export {mode}: state without {missing[:4]}")
+        prog = exported.module()
+        with torch.inference_mode():
+            got = prog(x1)
+            want = eager(x1)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        same = bool(torch.equal(got, want))
+        log(f"  loaded .pt2 {mode} on the card vs the eager int8 forward: "
+            f"bit-equal {same}, mean|flow|={float(want.abs().mean()):.4f}"
+            f"; launches {counts}")
+        check(same and bool(torch.isfinite(got).all()),
+              f"export {mode}: the loaded program differs")
+        check(counts["cost_volume_cuda"] > 0 and (
+            mode == "exact" or counts["warp_cost_volume_cuda"] > 0),
+            f"export {mode}: launches {counts}")
+        total = {k: total[k] + counts[k] for k in total}
+        del exported, prog, eager, got, want
+        torch.cuda.empty_cache()
+    return total
+
+
+def last_ops_on_card(dev, x) -> None:
+    """The last slice's ops and losses on the card against the CPU at
+    448x1024 b8 float32: the losses, the manual warp and the flow
+    inversion with their gradients within 1e-5 of the magnitude; the
+    argmax decoding exactly; the occlusion mask but where a truncation met
+    an integer boundary an ulp apart (LAST_FLIP_SHARE of the pixels)."""
+    import numpy as np
+    import torch
+
+    from qpwcnet_torch.ops import (
+        backward_warp_manual, cost_volume_to_flow, estimate_occlusion_map,
+        invert_flow)
+    from qpwcnet_torch.train import (
+        flow_finetune_loss, flow_mse_loss, piecewise_halving_schedule,
+        triangular2_cyclic_schedule)
+
+    errs = {}
+    rng = np.random.RandomState(SEED + 40)
+    flow = rng.uniform(-12, 12, (B, H, W, 2)).astype(np.float32)
+    pred = rng.uniform(-3, 3, (B, H // 4, W // 4, 2)).astype(np.float32)
+    img = x[..., :3].float().cpu().numpy()
+    cpu = torch.device("cpu")
+
+    def both(fn, *arrays, grad=True):
+        outs = []
+        for d in (cpu, dev):
+            ts = [torch.from_numpy(a).to(d).requires_grad_(grad)
+                  for a in arrays]
+            y = fn(*ts)
+            if grad:
+                y.backward(torch.ones_like(y) if y.dim() else None)
+                outs.append([y.detach().cpu()] + [t.grad.cpu() for t in ts])
+            else:
+                outs.append([y.cpu()])
+        return outs
+
+    for tag, fn, arrays in (
+            ("flow_mse_loss", flow_mse_loss, (flow, pred)),
+            ("flow_finetune_loss", flow_finetune_loss, (flow, pred)),
+            ("backward_warp_manual", backward_warp_manual, (img, flow)),
+            ("invert_flow", invert_flow, (flow,))):
+        c, g = both(fn, *arrays)
+        for i, (a, b) in enumerate(zip(g, c)):
+            name = tag if i == 0 else f"{tag} grad {i - 1}"
+            compare(f"{name} card vs CPU", a.to(dev), b.to(dev), REL_F32,
+                    errs, tag)
+    c, g = both(estimate_occlusion_map, flow, grad=False)
+    nd = int((c[0] != g[0]).sum())
+    log(f"  estimate_occlusion_map card vs CPU: {nd} of {c[0].numel()} "
+        f"pixels differ; occluded {float(c[0].mean()):.3f}")
+    check(nd <= LAST_FLIP_SHARE * c[0].numel(), f"occlusion: {nd}")
+    # a cost volume of the finest level's size, in half steps: many ties
+    cvol = (np.round(2.0 * rng.standard_normal((B, H // 2, W // 2, 81)))
+            / 2.0).astype(np.float32)
+    c, g = both(cost_volume_to_flow, cvol, grad=False)
+    log(f"  cost_volume_to_flow card vs CPU on a {tuple(cvol.shape)} cost "
+        f"volume: equal {torch.equal(c[0], g[0])}")
+    check(torch.equal(c[0], g[0]), "cost_volume_to_flow: card vs CPU")
+    piecewise, cyclic = (piecewise_halving_schedule(TRAIN_B),
+                         triangular2_cyclic_schedule(TRAIN_B))
+    b0 = int(400_000 * 8 / TRAIN_B)
+    log(f"  schedules (host functions, no card work): piecewise "
+        f"{piecewise(b0 - 1):g} -> {piecewise(b0):g} at {b0}, triangular2 "
+        f"at 0 / 2500 / 5000: {cyclic(0):g} / {cyclic(2500):g} / "
+        f"{cyclic(5000):g}")
+    check(piecewise(b0) == 0.5 * piecewise(b0 - 1), "piecewise schedule")
+    del cvol
+    torch.cuda.empty_cache()
+
+
+def phase_last(dev, x, ibatch) -> tuple:
+    """Phase 4i: the last slice (module docstring). Returns (the main
+    paths' launches, show_network's numbers by model)."""
+    import torch
+
+    log("== phase 4i: the last slice")
+    t_phase = time.perf_counter()
+    paths, shows = {}, {}
+    for model, hw, levels, k1_batch in (
+            ("flow", (H, W), CV_LEVELS, 1),
+            ("interp", (TRAIN_H, TRAIN_W), TRAIN_LEVELS, 2)):
+        paths[f"show_network_{model}"], shows[model] = show_network_path(
+            dev, model, hw, levels, k1_batch)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        paths["debug_nan_pretrain"] = debug_nan_path(dev, ibatch, tmp)
+        calib = int8_calibrated(dev, x)
+        paths["int8_spatial_infer"] = int8_spatial_path(dev, x, calib)
+        del calib
+        torch.cuda.empty_cache()
+        paths["int8_export"] = export_path(dev, tmp)
+    last_ops_on_card(dev, x)
+    log(f"  phase 4i took {time.perf_counter() - t_phase:.1f} s")
+    return paths, shows
+
+
 def quant_times(dev, x, batch) -> None:
     """Phase 5's quantization rows: CUDA-event times of the int8 forward
-    (exact and 'fast') beside the bf16 float exact forward at the
+    (exact and 'fast', and exact in 2 local H shards through
+    make_spatial_forward) beside the bf16 float exact forward at the
     headline, and of the QAT flow train step beside the float step at
     256x512 b16 bf16."""
     import dataclasses
 
     import torch
 
+    from qpwcnet_torch.parallel import (
+        SpatialConfig, make_mesh, make_spatial_forward, shard_batch_spatial)
     from qpwcnet_torch.quantize import QuantConfig
     from qpwcnet_torch.train import make_flow_train_step, plain_optimizer
 
     bf16 = torch.bfloat16
     qat = QuantConfig()
     int8 = dataclasses.replace(qat, mode="int8")
+    mesh = make_mesh(n_data=1, n_model=SPATIAL_N_FWD)
+    fwd = make_spatial_forward(lambda m, ims: m(ims), mesh)
+    xs = shard_batch_spatial(x, mesh)
     with torch.inference_mode():
         calib = build(bf16, dev, cv_impl="auto", quant=qat).train()
         calib(x[:B // 2])
@@ -2612,7 +3029,13 @@ def quant_times(dev, x, batch) -> None:
         for tag, m in rows:
             log(f"  time: flow forward {tag} {H}x{W} b{B}: "
                 f"{time_ms(lambda: m(x)):.3f} ms")
-        del rows, calib
+        sp = build(bf16, dev, cv_impl="auto", quant=int8,
+                   spatial=SpatialConfig(mesh, warp_halo=SPATIAL_HALO_FWD))
+        sp.load_state_dict(calib.state_dict())
+        log(f"  time: flow forward int8 exact sharded ({SPATIAL_N_FWD} "
+            f"local H shards) {H}x{W} b{B}: "
+            f"{time_ms(lambda: fwd(sp, xs)):.3f} ms")
+        del rows, calib, sp
     torch.cuda.empty_cache()
     step = make_flow_train_step()
     for tag, kw in (("float", {}), ("QAT", dict(quant=qat))):
@@ -2622,6 +3045,17 @@ def quant_times(dev, x, batch) -> None:
             f"b{TRAIN_B}: {time_ms(lambda: step(m, opt, batch), n=5):.3f} ms")
         del m, opt
         torch.cuda.empty_cache()
+
+
+def show_times(shows: dict) -> None:
+    """Phase 5's show_network rows: the forward times it measured in phase
+    4i (time_fn: CUDA events, the median of 10 after 2 warm-up calls) and
+    the TFLOP/s of its cost_analysis flops."""
+    for model, r in shows.items():
+        log(f"  time: show_network {model} forward bf16 b1: "
+            f"{r['forward_s'] * 1e3:.3f} ms, {r['flops'] / 1e9:.3f} GFLOP "
+            f"({r['tflops']:.3f} TFLOP/s), {r['bytes'] / 1e6:.1f} MB by "
+            f"cost_analysis")
 
 
 def bound(nbytes: float, nops: float) -> tuple:
@@ -3395,16 +3829,18 @@ def main() -> int:
         fused_paths = phase_fused(dev, x, batch, ibatch)
         spatial_paths = phase_spatial(dev, x, batch)
         quant_paths = phase_quant(dev, x, batch, ibatch)
+        last_paths, shows = phase_last(dev, x, ibatch)
     with tempfile.TemporaryDirectory() as data_root:
         data_paths = phase_data(dev, data_root)
         totals = phase_times(dev, x, batch, ibatch)
         data_times(dev, data_root)
         quant_times(dev, x, batch)
+        show_times(shows)
     log(f"== all phases passed in {time.perf_counter() - t0:.1f} s")
 
     paths = {"infer_app": infer_counts, "train_app": train_counts,
              **interp_paths, **ckpt_paths, **fused_paths, **spatial_paths,
-             **quant_paths, **data_paths}
+             **quant_paths, **last_paths, **data_paths}
     entries = []
     for name, meta in KERNELS.items():
         key = f"{name}_cuda"

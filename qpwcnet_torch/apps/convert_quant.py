@@ -20,6 +20,10 @@ package's layout, quantize/int8.py) and the int8-executing model
   * ``--check true`` reports the int8 model's mean |Δflow| against the
     float model with the same parameters on a random input, as % of the
     mean |flow|.
+  * ``--export out.pt2`` writes the int8 forward (batch 1, the run's
+    height and width) as a ``torch.export`` program, on the card with the
+    cost-volume kernel as the op ``qpwcnet::cost_volume``; load it with
+    ``import qpwcnet_torch.ops.cuda`` first.
 
 Run: python -m qpwcnet_torch.apps.convert_quant --steps 3 --check true
 """
@@ -157,15 +161,12 @@ def _calibrate(cfg: Settings, model, chain) -> None:
 
 def export_int8(model, path, example: torch.Tensor) -> None:
     """``torch.export`` of the int8 model's forward on inputs shaped like
-    ``example``, saved to ``path``. Raises NotImplementedError, with the
-    exporter's error as its cause, where the forward does not export (the
-    CUDA kernels' ctypes calls take real device pointers)."""
-    try:
-        exported = torch.export.export(model, (example,))
-    except Exception as e:  # any exporter failure: reported, not skipped
-        raise NotImplementedError(
-            "--export: the int8 forward does not export with torch.export "
-            f"here ({type(e).__name__}); ROADMAP queue 1") from e
+    ``example`` (on the card: the CUDA kernels K1 and K3 as the custom ops
+    ``qpwcnet::cost_volume`` and ``qpwcnet::warp_cost_volume``), saved to
+    ``path``. A forward the exporter cannot trace raises the exporter's
+    own error. A program holding the ops loads after
+    ``import qpwcnet_torch.ops.cuda``, which registers them."""
+    exported = torch.export.export(model, (example,))
     torch.export.save(exported, str(path))
 
 

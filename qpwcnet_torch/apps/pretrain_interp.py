@@ -34,10 +34,13 @@ the dataset again from its first epoch, as JAX's does.
 activation ranges, and ``--load-ckpt`` of a float run starts a QAT
 fine-tune from it.
 
-Run: python -m qpwcnet_torch.apps.pretrain_interp --steps 20
+``--debug-nan true`` (JAX's ``jax_debug_nans``) runs every step under
+autograd's anomaly mode and raises FloatingPointError at the first NaN
+in a forward output, the loss or a gradient, before the NaN scrub
+(``train.make_interp_train_step(debug_nan=True)``); the losses are those
+of the run without it.
 
-Not ported yet, and refused with NotImplementedError rather than
-skipped: ``--debug-nan`` (JAX's NaN checker) has no counterpart yet.
+Run: python -m qpwcnet_torch.apps.pretrain_interp --steps 20
 """
 
 from __future__ import annotations
@@ -86,13 +89,9 @@ class Settings:
     device: str = "cuda"
 
 
-def _refuse_unported(cfg: Settings) -> None:
+def _check_settings(cfg: Settings) -> None:
     if cfg.data not in DATA_MODES:
         raise ValueError(f"unknown data source {cfg.data!r}")
-    if cfg.debug_nan:
-        raise NotImplementedError(
-            "--debug-nan: the JAX NaN checker has no counterpart in the "
-            "port yet")
 
 
 def build_model(cfg: Settings) -> torch.nn.Module:
@@ -176,7 +175,8 @@ def _pretrain_on_dataset(cfg: Settings, model, optimizer, ckpt, writer,
 
     mesh = make_mesh_for_batch(cfg.batch_size)
     replicate(model, mesh)
-    step_fn = make_parallel_step(make_interp_train_step(), mesh)
+    step_fn = make_parallel_step(
+        make_interp_train_step(debug_nan=cfg.debug_nan), mesh)
     loader = _triplet_loader(cfg, *process_shard())
     batches = iter(loader)
     dev = torch.device(cfg.device)
@@ -238,7 +238,7 @@ def _pretrain_synthetic(cfg: Settings, model, optimizer, ckpt, writer,
         recalibrate_batch_stats,
     )
 
-    step = make_interp_train_step()
+    step = make_interp_train_step(debug_nan=cfg.debug_nan)
     # Held-out eval triplet, never trained on: eval-mode final-scale MSE
     # with the running BatchNorm statistics, as deployment runs it.
     held = _batch(cfg, stream_seed(cfg.seed + 999), 0, augment=False)
@@ -303,7 +303,7 @@ def run(cfg: Settings):
         snapshot_config,
     )
 
-    _refuse_unported(cfg)
+    _check_settings(cfg)
     paths = setup_run_dir(cfg.run_root or default_root("pretrain"))
     snapshot_config(paths["run"], cfg)
     print(f"run dir: {paths['run']}", file=sys.stderr)

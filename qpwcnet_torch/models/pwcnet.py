@@ -404,17 +404,14 @@ def build_flow_net(seed: int = 0, device: Union[str, torch.device] = "cuda",
     upconv kernels are not shard-aware and float-only, so
     ``stem_stages`` and ``upconv_stages`` refuse ``spatial`` and
     ``quant``, as JAX's build_flow_net does. quant: a
-    ``quantize.QuantConfig``; its ranges start at 0 (int8 execution under
-    ``spatial`` is refused: ROADMAP queue 1)."""
+    ``quantize.QuantConfig``; its ranges start at 0 (with ``spatial`` too:
+    the int8 convs exchange their halo rows as int8 codes)."""
     if (stem_stages or upconv_stages) and (
             quant is not None or spatial is not None):
         raise ValueError(
             "stem_stages and upconv_stages need the float path (no quant) "
             "and the unsharded model: the fused stem and upconv kernels "
             "are float-only and not H-shard-aware")
-    if spatial is not None and int8_mode(quant):
-        raise NotImplementedError(
-            "int8 execution under an H-sharded mesh: ROADMAP queue 1")
     model = PWCFlowNet(dtype=dtype, cv_impl=cv_impl, head_scale=head_scale,
                        residual=residual, stem_stages=stem_stages,
                        fuse_batch=fuse_batch, upconv_stages=upconv_stages,

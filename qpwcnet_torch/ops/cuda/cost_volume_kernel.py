@@ -47,6 +47,13 @@ pixel reads its 81 source pixels), so it needs no atomics. The plain
 versions make 81 float32 passes over (B, H, W, C) maps. Products are
 exact and sums float32 in both bodies (the TPU kernel rounds each
 product to the input dtype before its float32 sum).
+
+K1's unhaloed launch is the custom op ``qpwcnet::cost_volume``
+(``torch.library``, CUDA only) with a fake implementation (the plain
+version's shape and dtype) and a flop formula (2·81·C multiply-adds a
+pixel), so ``torch.export`` traces it into a program (a loaded program
+needs this module imported first, to register the op) and
+``FlopCounterMode`` counts it.
 """
 
 from __future__ import annotations
@@ -60,6 +67,7 @@ from qpwcnet_torch.ops.cost_volume import (
     cost_volume_plain_haloed,
 )
 from qpwcnet_torch.ops.cuda import _build
+from torch.utils.flop_counter import register_flop_formula
 
 SEARCH_RANGE = 4  # the kernels' compiled search range (81 outputs)
 N_DISP = (2 * SEARCH_RANGE + 1) ** 2
@@ -86,18 +94,43 @@ def _launch_fwd(prv: torch.Tensor, nxt: torch.Tensor, search_range: int,
     return out
 
 
+@torch.library.custom_op("qpwcnet::cost_volume", mutates_args=(),
+                         device_types="cuda")
+def cost_volume_op(prv: torch.Tensor, nxt: torch.Tensor) -> torch.Tensor:
+    """K1 on card tensors (B, H, W, C) x2 -> (B, H, W, 81), search range
+    4; counts the launch on :func:`cost_volume_cuda`."""
+    out = _launch_fwd(prv, nxt, SEARCH_RANGE, 0)
+    cost_volume_cuda.launches += 1
+    return out
+
+
+@cost_volume_op.register_fake
+def _cost_volume_fake(prv: torch.Tensor, nxt: torch.Tensor) -> torch.Tensor:
+    b, h, w, _ = prv.shape
+    return prv.new_empty((b, h, w, N_DISP))
+
+
+@register_flop_formula(torch.ops.qpwcnet.cost_volume)
+def cost_volume_flops(prv_shape, nxt_shape, *args, out_shape=None,
+                      **kwargs) -> int:
+    """81 products and sums of C channels a pixel: 2·81·C·B·H·W."""
+    b, h, w, c = prv_shape
+    return 2 * N_DISP * c * b * h * w
+
+
 def cost_volume_cuda(prv: torch.Tensor, nxt: torch.Tensor,
                      search_range: int = 4) -> torch.Tensor:
     """Cost volume, NHWC (B, H, W, C) x2 -> (B, H, W, 81).
 
     CPU tensors take :func:`cost_volume_plain`; CUDA tensors launch the
-    kernel or raise.
+    kernel (the op ``qpwcnet::cost_volume``) or raise.
     """
     if not prv.is_cuda:
         return cost_volume_plain(prv, nxt, search_range=search_range)
-    out = _launch_fwd(prv, nxt, search_range, 0)
-    cost_volume_cuda.launches += 1
-    return out
+    if search_range != SEARCH_RANGE:
+        raise ValueError(f"the CUDA cost volume is built for search_range="
+                         f"{SEARCH_RANGE}, got {search_range}")
+    return torch.ops.qpwcnet.cost_volume(prv, nxt)
 
 
 def cost_volume_haloed_cuda(prv: torch.Tensor, nxt_h: torch.Tensor,

@@ -19,6 +19,10 @@ and the bilinear interpolation at the plain version's bf16 rounding
 points, stored into the window's shared-memory rows (true per-pixel
 addressing; the TPU's (2w+2)² masked taps are not needed on a GPU). The
 float32 body is the CUDA-core ``correlate_kernel<float, true>``.
+
+The launch is the custom op ``qpwcnet::warp_cost_volume`` (CUDA only),
+with a fake implementation and a flop formula, as K1's
+``qpwcnet::cost_volume``.
 """
 
 from __future__ import annotations
@@ -27,8 +31,9 @@ import torch
 
 from qpwcnet_torch.ops.cost_volume import cost_volume_plain
 from qpwcnet_torch.ops.cuda import _build
-from qpwcnet_torch.ops.cuda.cost_volume_kernel import SEARCH_RANGE
+from qpwcnet_torch.ops.cuda.cost_volume_kernel import N_DISP, SEARCH_RANGE
 from qpwcnet_torch.ops.warp import backward_warp, clip_balanced
+from torch.utils.flop_counter import register_flop_formula
 
 # Window of the model's cv_impl='fused' inference path
 # (models/blocks.py:UpFlowBlock), as in the JAX package.
@@ -45,30 +50,18 @@ def warp_cost_volume_plain(prv: torch.Tensor, nxt: torch.Tensor,
     return cost_volume_plain(prv, nxt_w, search_range=search_range)
 
 
-def warp_cost_volume_cuda(prv: torch.Tensor, nxt: torch.Tensor,
-                          flow: torch.Tensor, search_range: int = 4,
-                          warp_window: int = FUSED_WARP_WINDOW
-                          ) -> torch.Tensor:
-    """Fused warp + cost volume. prv, nxt: (B, H, W, C); flow: (B, H, W, 2)
-    float32 in (x, y) order -> (B, H, W, 81) in prv's dtype.
-
-    CPU tensors take :func:`warp_cost_volume_plain`; CUDA tensors launch
-    the kernel or raise.
-    """
-    if not prv.is_cuda:
-        return warp_cost_volume_plain(prv, nxt, flow, search_range,
-                                      warp_window)
-    if search_range != SEARCH_RANGE:
-        raise ValueError(f"the CUDA warp+cost volume is built for "
-                         f"search_range={SEARCH_RANGE}, got {search_range}")
+@torch.library.custom_op("qpwcnet::warp_cost_volume", mutates_args=(),
+                         device_types="cuda")
+def warp_cost_volume_op(prv: torch.Tensor, nxt: torch.Tensor,
+                        flow: torch.Tensor, warp_window: float
+                        ) -> torch.Tensor:
+    """K3 on card tensors, search range 4; counts the launch on
+    :func:`warp_cost_volume_cuda`."""
     b, h, w, c = prv.shape
-    if h < 2 or w < 2:
-        raise ValueError(f"warp+cost volume needs H, W >= 2, got {(h, w)}")
     _build.require(prv, "prv")
     _build.require(nxt, "nxt", prv.shape, prv.dtype, prv.device)
     _build.require(flow, "flow", (b, h, w, 2), torch.float32, prv.device)
-    d = 2 * search_range + 1
-    out = torch.empty((b, h, w, d * d), dtype=prv.dtype, device=prv.device)
+    out = torch.empty((b, h, w, N_DISP), dtype=prv.dtype, device=prv.device)
     lib = _build.library()
     with _build.on_device(prv.device):
         err = lib.qpw_warp_cost_volume(
@@ -78,6 +71,44 @@ def warp_cost_volume_cuda(prv: torch.Tensor, nxt: torch.Tensor,
     _build.check(err, "qpw_warp_cost_volume")
     warp_cost_volume_cuda.launches += 1
     return out
+
+
+@warp_cost_volume_op.register_fake
+def _warp_cost_volume_fake(prv, nxt, flow, warp_window):
+    b, h, w, _ = prv.shape
+    return prv.new_empty((b, h, w, N_DISP))
+
+
+@register_flop_formula(torch.ops.qpwcnet.warp_cost_volume)
+def warp_cost_volume_flops(prv_shape, nxt_shape, flow_shape, *args,
+                           out_shape=None, **kwargs) -> int:
+    """The correlation's products and sums, K1's 2·81·C·B·H·W (the
+    counter counts products, not the warp's elementwise lerp)."""
+    b, h, w, c = prv_shape
+    return 2 * N_DISP * c * b * h * w
+
+
+def warp_cost_volume_cuda(prv: torch.Tensor, nxt: torch.Tensor,
+                          flow: torch.Tensor, search_range: int = 4,
+                          warp_window: int = FUSED_WARP_WINDOW
+                          ) -> torch.Tensor:
+    """Fused warp + cost volume. prv, nxt: (B, H, W, C); flow: (B, H, W, 2)
+    float32 in (x, y) order -> (B, H, W, 81) in prv's dtype.
+
+    CPU tensors take :func:`warp_cost_volume_plain`; CUDA tensors launch
+    the kernel (the op ``qpwcnet::warp_cost_volume``) or raise.
+    """
+    if not prv.is_cuda:
+        return warp_cost_volume_plain(prv, nxt, flow, search_range,
+                                      warp_window)
+    if search_range != SEARCH_RANGE:
+        raise ValueError(f"the CUDA warp+cost volume is built for "
+                         f"search_range={SEARCH_RANGE}, got {search_range}")
+    h, w = prv.shape[1:3]
+    if h < 2 or w < 2:
+        raise ValueError(f"warp+cost volume needs H, W >= 2, got {(h, w)}")
+    return torch.ops.qpwcnet.warp_cost_volume(prv, nxt, flow,
+                                              float(warp_window))
 
 
 warp_cost_volume_cuda.launches = 0

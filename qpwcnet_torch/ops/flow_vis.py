@@ -1,4 +1,5 @@
-"""Flow visualization (port of qpwcnet_tpu/ops/flow_vis.py:flow_to_image)."""
+"""Flow visualization and cost-volume decoding (port of
+qpwcnet_tpu/ops/flow_vis.py). NHWC only."""
 
 from __future__ import annotations
 
@@ -41,3 +42,21 @@ def flow_to_image(flow: torch.Tensor) -> torch.Tensor:
     s = mag / (smax + 1e-6)
     v = torch.ones_like(h)
     return hsv_to_rgb(torch.stack([h, s, v], dim=-1))
+
+
+def cost_volume_to_flow(cvol: torch.Tensor) -> torch.Tensor:
+    """Decode a displacement from a cost volume by its argmax over the
+    d*d offsets (the first maximum wins, as in ``jnp.argmax``).
+
+    cvol: (..., H, W, d*d) -> (..., H, W, 2) float32 in (di, dj) == (y, x)
+    order, the reference's ``tf.stack([di, dj], axis)``, unlike the flow
+    convention's (x, y).
+    """
+    dims = cvol.shape[-1]
+    q = math.isqrt(dims)
+    if q * q != dims:
+        raise ValueError(f"cost volume has {dims} channels, not a square")
+    imax = torch.argmax(cvol, dim=-1).float()
+    di = torch.floor(imax / q)
+    dj = imax - di * q
+    return torch.stack([di - (q - 1) / 2.0, dj - (q - 1) / 2.0], dim=-1)

@@ -18,8 +18,12 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """Bilinear resize to (H', W'), half-pixel centers.
 
     Downsampling is antialiased (triangle kernel widened by the scale), as
-    ``jax.image.resize`` does. x: (B, H, W, C) -> (B, H', W', C).
+    ``jax.image.resize`` does. x: (B, H, W, C) -> (B, H', W', C). At its
+    own size x is returned as it is, as ``jax.image.resize`` skips the
+    identity (its gradient is then the identity, also at a NaN).
     """
+    if tuple(x.shape[1:3]) == tuple(out_hw):
+        return x
     y = F.interpolate(nchw(x), size=tuple(out_hw), mode="bilinear",
                       align_corners=False, antialias=True)
     return nhwc(y)

@@ -64,8 +64,11 @@ def warp_coords(flow: torch.Tensor, hp: int, wp: int, y_offset: int = 0):
     gx = torch.arange(w, dtype=torch.float32, device=flow.device)[None, :]
     qx = gx + flow[..., 0]
     qy = gy + flow[..., 1] + float(y_offset)
-    x0 = torch.clamp(torch.floor(qx), 0.0, wp - 2.0)
-    y0 = torch.clamp(torch.floor(qy), 0.0, hp - 2.0)
+    # a NaN flow takes corner 0 (XLA's gather clamps its index) and NaN
+    # weights, so its output is NaN as JAX's is, where indexing with the
+    # NaN's integer cast would fault
+    x0 = torch.clamp(torch.floor(qx), 0.0, wp - 2.0).nan_to_num(nan=0.0)
+    y0 = torch.clamp(torch.floor(qy), 0.0, hp - 2.0).nan_to_num(nan=0.0)
     ax = clip_balanced(qx - x0, 0.0, 1.0)
     ay = clip_balanced(qy - y0, 0.0, 1.0)
     return x0, y0, ax, ay
@@ -215,3 +218,43 @@ def backward_warp_window(img: torch.Tensor, flow: torch.Tensor,
     scatter for d_img).
     """
     return _BackwardWarp.apply(img, flow, int(y_offset))
+
+
+def backward_warp_manual(img: torch.Tensor, flow: torch.Tensor
+                         ) -> torch.Tensor:
+    """The reference's hand-rolled ``tf_warp`` (port of
+    ``qpwcnet_tpu/ops/warp.py:backward_warp_manual``).
+
+    Differs from :func:`backward_warp` at border pixels only: coordinates
+    are truncated toward zero (tf.cast's and ``.to(torch.int32)``'s
+    rounding), each corner index is clamped to [0, size - 1] on its own,
+    and the interpolation weights come from the *unclamped* query point,
+    so the result extrapolates at the borders. Computed in float32,
+    returned in img's dtype; gradients by autograd.
+    """
+    b, h, w, c = img.shape
+    flow = flow.float()
+    gy = torch.arange(h, dtype=torch.float32, device=img.device)[:, None]
+    gx = torch.arange(w, dtype=torch.float32, device=img.device)[None, :]
+    qx = gx + flow[..., 0]
+    qy = gy + flow[..., 1]
+    x0i, y0i = qx.to(torch.int32), qy.to(torch.int32)
+    x0, x1 = x0i.clamp(0, w - 1), (x0i + 1).clamp(0, w - 1)
+    y0, y1 = y0i.clamp(0, h - 1), (y0i + 1).clamp(0, h - 1)
+
+    flat = img.float().reshape(b, h * w, c)
+    bidx = torch.arange(b, device=img.device)[:, None]
+
+    def gat(yi, xi):
+        return flat[bidx, (yi * w + xi).reshape(b, h * w).long()]
+
+    x0f, x1f, y0f, y1f = x0.float(), x1.float(), y0.float(), y1.float()
+
+    def wgt(t):
+        return t.reshape(b, h * w, 1)
+
+    out = (wgt((x1f - qx) * (y1f - qy)) * gat(y0, x0)
+           + wgt((x1f - qx) * (qy - y0f)) * gat(y1, x0)
+           + wgt((qx - x0f) * (y1f - qy)) * gat(y0, x1)
+           + wgt((qx - x0f) * (qy - y0f)) * gat(y1, x1))
+    return out.reshape(b, h, w, c).to(img.dtype)

@@ -11,6 +11,14 @@ the CPU. A depthwise conv is kh·kw shifted int32 multiply-adds. The
 transpose conv is JAX's input-dilated conv with the un-flipped HWIO
 kernel and SAME's dilated padding.
 
+Under an H-sharded mesh (qpwcnet_torch.parallel) the input is one
+shard's rows: H takes the SAME padding of the whole image, filled with
+the neighbouring shards' int8 codes (``parallel/transport.py:halo_rows``)
+and with zeros only at the global ends, as the float convs do
+(``quantize/qlayers.py:conv2d_same``), so each shard's int32 rows are the
+unsharded conv's. The scales are replicated, so nothing else crosses
+shards.
+
 The bundle keeps JAX's ``.npz`` layout: one entry per conv and field,
 ``<flax path>::kernel_i8`` (int8 HWIO, the per-input-channel scales
 folded in), ``::w_scale`` (float32 (1, 1, 1, Co)), ``::in_amax`` (float64
@@ -28,6 +36,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from qpwcnet_torch.layout import nchw, nhwc
+from qpwcnet_torch.parallel.transport import active_shards, halo_rows
 from qpwcnet_torch.quantize.qtensor import QTensor
 
 # torch._int_mm on the card takes more than 16 rows and inner and output
@@ -106,13 +115,15 @@ def _im2col_conv(xq: torch.Tensor, kq: torch.Tensor, stride: int,
     return y.view(b, ho, wo, co)
 
 
-def _depthwise_conv(xq: torch.Tensor, kq: torch.Tensor) -> torch.Tensor:
-    """int8 NHWC x int8 (kh, kw, 1, C) -> int32 NHWC, stride 1, SAME:
-    kh·kw shifted int32 multiply-adds."""
+def _depthwise_conv(xq: torch.Tensor, kq: torch.Tensor,
+                    pads: tuple) -> torch.Tensor:
+    """int8 NHWC x int8 (kh, kw, 1, C) -> int32 NHWC, stride 1, with
+    ``pads`` ((top, bottom), (left, right)) of zeros: kh·kw shifted int32
+    multiply-adds."""
     kh, kw = kq.shape[:2]
-    h, w = xq.shape[1:3]
-    (pt, pb), (pl, pr) = _same_pads(h, kh, 1), _same_pads(w, kw, 1)
+    (pt, pb), (pl, pr) = pads
     xp = F.pad(xq, (0, 0, pl, pr, pt, pb))
+    h, w = xp.shape[1] - kh + 1, xp.shape[2] - kw + 1
     k32 = kq.int()
     acc = None
     for dy in range(kh):
@@ -161,6 +172,22 @@ def int8_conv_apply(x: Union[torch.Tensor, QTensor], weight: torch.Tensor,
     return nchw(y.float() * (s_in * s_w.reshape(1, 1, 1, -1)))
 
 
+def _shard_rows(xq: torch.Tensor, kh: int, stride: int) -> tuple:
+    """Under an H-sharded mesh: xq (a shard's rows) with the whole image's
+    SAME H padding taken from the neighbouring shards (zeros at the
+    global ends; stride 2 on an even H: (0, 1)), and the H pads left to
+    apply, (0, 0). Without one: xq and the shard's own SAME pads."""
+    shards = active_shards()
+    h = xq.shape[1]
+    if shards is None:
+        return xq, _same_pads(h, kh, stride)
+    if h % stride:
+        raise ValueError(f"an H shard of {h} rows does not split by the "
+                         f"conv's stride {stride}")
+    pt, pb = _same_pads(h * shards.n, kh, stride)
+    return halo_rows(xq, 1, pt, pb), (0, 0)
+
+
 def int8_conv_int32(xq: torch.Tensor, kq: torch.Tensor, stride: int = 1,
                     groups: int = 1, transpose: bool = False
                     ) -> torch.Tensor:
@@ -168,28 +195,38 @@ def int8_conv_int32(xq: torch.Tensor, kq: torch.Tensor, stride: int = 1,
     HWIO kernel, NHWC: JAX's ``conv_general_dilated(...,
     preferred_element_type=int32)`` with SAME padding (``groups`` = C:
     depthwise; ``transpose``: the input-dilated spelling of
-    conv_transpose)."""
+    conv_transpose). Under an H-sharded mesh xq is a shard's rows and so
+    is the result (module docstring)."""
     kh, kw = kq.shape[:2]
     if transpose:
         # conv_transpose as an input-dilated conv (JAX's SAME padding of
-        # the dilated input; k = 4, s = 2: two rows/columns a side)
-        b, h, w, c = xq.shape
-        dil = xq.new_zeros((b, (h - 1) * stride + 1, (w - 1) * stride + 1, c))
+        # the dilated input; k = 4, s = 2: two rows/columns a side).
+        # Sharded, output rows 2i - 2 .. 2i + 1 read input row i: the
+        # shard takes one input row of each neighbour and keeps its 2h
+        # output rows
+        sharded = active_shards() is not None
+        h = xq.shape[1]
+        if sharded:
+            xq = halo_rows(xq, 1, 1, 1)
+        b, hi, w, c = xq.shape
+        dil = xq.new_zeros((b, (hi - 1) * stride + 1, (w - 1) * stride + 1,
+                            c))
         dil[:, ::stride, ::stride] = xq
         pads = []
         for k in (kh, kw):
             pad_len = k + stride - 2
             pad_a = k - 1 if stride > k - 1 else -(-pad_len // 2)
             pads.append((pad_a, pad_len - pad_a))
-        return _im2col_conv(dil, kq, 1, tuple(pads))
+        y = _im2col_conv(dil, kq, 1, tuple(pads))
+        return y.narrow(1, stride, stride * h) if sharded else y
+    xq, h_pads = _shard_rows(xq, kh, stride)
+    w_pads = _same_pads(xq.shape[2], kw, stride)
     if groups > 1:
         if not (groups == xq.shape[-1] == kq.shape[-1] and kq.shape[2] == 1
                 and stride == 1):
             raise ValueError("int8 grouped convs are depthwise, stride 1")
-        return _depthwise_conv(xq, kq)
-    h, w = xq.shape[1:3]
-    return _im2col_conv(xq, kq, stride, (_same_pads(h, kh, stride),
-                                         _same_pads(w, kw, stride)))
+        return _depthwise_conv(xq, kq, (h_pads, w_pads))
+    return _im2col_conv(xq, kq, stride, (h_pads, w_pads))
 
 
 class Int8Conv:

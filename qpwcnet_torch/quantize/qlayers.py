@@ -10,7 +10,8 @@ for depthwise convs and (I, O, kh, kw) for transpose convs
 Under an H-sharded mesh (qpwcnet_torch.parallel) a conv's input is one
 shard's rows: H is padded with the neighbouring shards' rows, and with
 zeros only at the global ends, so each shard's output rows are the
-unsharded conv's (XLA's partitioning of the JAX model's convs).
+unsharded conv's (XLA's partitioning of the JAX model's convs); in int8
+mode the int8 convs do the same with the int8 codes (quantize/int8.py).
 
 ``quant`` (a :class:`~qpwcnet_torch.quantize.fake_quant.QuantConfig`)
 makes a conv quantized, as JAX's constructor flag does:
@@ -168,10 +169,6 @@ class QuantConv(nn.Module):
         a QTensor quantized with this conv's output range."""
         q = self.quant
         if q is not None and q.mode == "int8":
-            if active_shards() is not None:
-                raise NotImplementedError(
-                    "int8 execution under an H-sharded mesh: ROADMAP "
-                    "queue 1")
             y = int8_conv_apply(x, self.weight, self.amax_in,
                                 stride=self.stride, groups=self.groups,
                                 transpose=self.TRANSPOSE,

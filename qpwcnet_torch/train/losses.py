@@ -10,6 +10,11 @@ All NHWC, flow in (x, y) channel order:
   * :func:`multiscale_interp_loss` — AutoResizeMseLoss (bilinear resize
     of the GT image to each prediction's scale, plain MSE), summed over
     ALL interpolator outputs, with the per-scale img_i_loss values.
+  * :func:`flow_mse_loss` — FlowMseLoss: the GT flow resized bilinearly
+    to the prediction's scale (magnitude scaled by pred_h/true_h), then
+    the mean L2 norm of the residual.
+  * :func:`flow_finetune_loss` — FlowMseLossFineTune: mean((|d|_1 +
+    eps)^q) of the same residual.
   * :func:`epe_error` — the end-point-error metric.
   * :func:`l2_regularization` — gamma * sum(kernel**2) over the DownConv
     and UpConv kernels (the Keras l2 regularizers).
@@ -63,6 +68,38 @@ def multiscale_flow_loss(flo_true: torch.Tensor,
     """Sum of FlowMseLossV2 over all scales except the final
     bilinear-only output."""
     return sum(flow_loss_v2(flo_true, p, delta) for p in flo_preds[:-1])
+
+
+def _norm_mirroring_jax(d: torch.Tensor) -> torch.Tensor:
+    """The L2 norm over the last axis as ``sqrt(sum(d²))``, whose gradient
+    at an exactly zero residual is NaN (0/0), as ``jnp.linalg.norm``'s is
+    under ``jax.grad``; ``torch.linalg.vector_norm``'s is 0 there."""
+    return torch.sqrt(torch.sum(torch.square(d), dim=-1))
+
+
+def _resized_true(flo_true: torch.Tensor,
+                  flo_pred: torch.Tensor) -> torch.Tensor:
+    """The GT flow resized bilinearly to the prediction's (H, W), its
+    magnitude scaled by pred_h / true_h."""
+    ph, pw = flo_pred.shape[1], flo_pred.shape[2]
+    return resize_bilinear(flo_true, (ph, pw)) * (ph / flo_true.shape[1])
+
+
+def flow_mse_loss(flo_true: torch.Tensor,
+                  flo_pred: torch.Tensor) -> torch.Tensor:
+    """FlowMseLoss: the mean channel-axis L2 norm of the residual between
+    the resized GT flow and the prediction."""
+    return torch.mean(_norm_mirroring_jax(_resized_true(flo_true, flo_pred)
+                                          - flo_pred))
+
+
+def flow_finetune_loss(flo_true: torch.Tensor, flo_pred: torch.Tensor,
+                       q: float = 0.4, eps: float = 0.01) -> torch.Tensor:
+    """FlowMseLossFineTune: mean((||d||_1 + eps)^q) of the residual
+    between the resized GT flow and the prediction."""
+    err = torch.sum(torch.abs(_resized_true(flo_true, flo_pred) - flo_pred),
+                    dim=-1)
+    return torch.mean(torch.pow(err + eps, q))
 
 
 def auto_resize_mse_loss(img_true: torch.Tensor,

@@ -11,6 +11,7 @@ mutable 'quant_stats').
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Iterable, Optional, Sequence
 
 import torch
@@ -123,7 +124,43 @@ def make_flow_train_step(l2_gamma: float = 4e-6) -> Callable:
     return train_step
 
 
-def make_interp_train_step(l2_gamma: float = 4e-6) -> Callable:
+def _raise_on_nan(what: str, tensors) -> None:
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and t.is_floating_point() and bool(
+                torch.isnan(t).any()):
+            raise FloatingPointError(f"NaN in {what} (shape "
+                                     f"{tuple(t.shape)})")
+
+
+@contextlib.contextmanager
+def _debug_nans(model: nn.Module):
+    """Autograd's anomaly mode, and a forward hook on every module of
+    ``model`` raising FloatingPointError at the first output that holds a
+    NaN (JAX's debug_nans stops at the first primitive that makes one);
+    a NaN that anomaly mode finds in the backward is raised as
+    FloatingPointError too."""
+    from torch.utils._pytree import tree_leaves
+
+    def check(name):
+        return lambda mod, inp, out: _raise_on_nan(
+            f"forward output of {name or 'the model'}", tree_leaves(out))
+
+    hooks = [m.register_forward_hook(check(n))
+             for n, m in model.named_modules()]
+    try:
+        with torch.autograd.set_detect_anomaly(True):
+            yield
+    except RuntimeError as e:
+        if "nan" not in str(e).lower():
+            raise
+        raise FloatingPointError(str(e)) from e
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def make_interp_train_step(l2_gamma: float = 4e-6,
+                           debug_nan: bool = False) -> Callable:
     """Frame-interpolation pretraining step ``step(model, optimizer,
     batch)``.
 
@@ -133,16 +170,30 @@ def make_interp_train_step(l2_gamma: float = 4e-6) -> Callable:
     plus the kernel l2 term, and steps the optimizer. Returns {'loss',
     'img_0_loss', ..., 'img_5_loss'} as 0-d tensors on the model's
     device.
+
+    debug_nan: the counterpart of JAX's ``jax_debug_nans``. The step runs
+    under ``torch.autograd.set_detect_anomaly(True)`` (which names the
+    forward op of a backward that made a NaN) and raises
+    FloatingPointError at the first NaN (not inf) in the output of any of
+    the model's modules, in the loss or in a gradient, before the NaN
+    scrub of the optimizer. It reads each of them back to the host, so it
+    costs a synchronization a check; off, the step is unchanged.
     """
 
     def train_step(model: nn.Module, optimizer: GradientChain,
                    batch: dict) -> dict:
         model.train()
         optimizer.zero_grad()
-        outs = model(batch["ims"], multiscale=True)
-        loss, per_scale = multiscale_interp_loss(batch["mid"], outs)
-        loss = loss + l2_regularization(model, l2_gamma)
-        loss.backward()
+        with _debug_nans(model) if debug_nan else contextlib.nullcontext():
+            outs = model(batch["ims"], multiscale=True)
+            loss, per_scale = multiscale_interp_loss(batch["mid"], outs)
+            loss = loss + l2_regularization(model, l2_gamma)
+            if debug_nan:
+                _raise_on_nan("the loss", [loss])
+            loss.backward()
+        if debug_nan:
+            _raise_on_nan("a gradient",
+                          (p.grad for p in model.parameters()))
         optimizer.step()
         return {"loss": loss.detach(),
                 **{k: v.detach() for k, v in per_scale.items()}}

@@ -1096,3 +1096,85 @@ def test_int8_model_card_matches_cpu(dev):
         got = card(x.to(dev)).cpu()
     assert float(want.abs().mean()) > 0.0
     assert float((got - want).norm()) <= 1e-3 * float(want.norm())
+
+
+@pytest.mark.cuda
+def test_kernel_ops_export_count_and_flops(dev, tmp_path):
+    """K1 and K3 as the custom ops qpwcnet::cost_volume and
+    qpwcnet::warp_cost_volume: a module calling both exports with
+    torch.export (each op once in the graph), the loaded program runs the
+    kernels (their launch counts move) bit-equal to the eager call, and
+    cost_analysis counts each op's registered flops (2·81·C a pixel)."""
+    from qpwcnet_torch.utils.profiling import cost_analysis
+
+    rng = np.random.RandomState(0)
+    prv = _rand(rng, (2, 9, 21, 24), dev, torch.bfloat16)
+    nxt = _rand(rng, (2, 9, 21, 24), dev, torch.bfloat16)
+    flow = _rand(rng, (2, 9, 21, 2), dev, scale=3.0)
+
+    class Both(torch.nn.Module):
+        def forward(self, p, n, f):
+            return cost_volume_cuda(p, n) + warp_cost_volume_cuda(p, n, f)
+
+    want = Both()(prv, nxt, flow)
+    exported = torch.export.export(Both(), (prv, nxt, flow))
+    targets = [str(n.target) for n in exported.graph.nodes
+               if n.op == "call_function"]
+    assert sum(t.startswith("qpwcnet.cost_volume.") for t in targets) == 1
+    assert sum(t.startswith("qpwcnet.warp_cost_volume.")
+               for t in targets) == 1
+    torch.export.save(exported, str(tmp_path / "both.pt2"))
+    prog = torch.export.load(str(tmp_path / "both.pt2")).module()
+    kernels.reset_launch_counts()
+    got = prog(prv, nxt, flow)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["cost_volume_cuda"] == counts["warp_cost_volume_cuda"] == 1
+    assert torch.equal(got, want)
+    flops = cost_analysis(Both(), prv, nxt, flow)["flops"]
+    assert flops == 2 * (2 * 81 * 24 * 2 * 9 * 21)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_int8_sharded_forward_card(dev, n):
+    """The int8 flow net in n local H shards on the card (its convs
+    exchanging int8 halo rows, K1's haloed mode) against the unsharded
+    int8 model on the card, float32: 1e-5 of the flow magnitude."""
+    import dataclasses
+
+    from qpwcnet_torch.parallel import (
+        SpatialConfig,
+        make_mesh,
+        make_spatial_forward,
+        shard_batch_spatial,
+        unshard_batch_spatial,
+    )
+    from qpwcnet_torch.quantize import QuantConfig
+
+    qat = build_flow_net(0, dev, head_scale="unit", residual=True,
+                         quant=QuantConfig()).train()
+    x = (torch.rand(2, 128, 64, 6, generator=torch.Generator().manual_seed(
+        n)) - 0.5).to(dev)
+    with torch.no_grad():
+        qat(x)
+    int8 = dataclasses.replace(QuantConfig(), mode="int8")
+    ranges = {k: v for k, v in qat.state_dict().items() if "amax" in k}
+    mesh = make_mesh(n_data=1, n_model=n)
+    ref = build_flow_net(0, dev, head_scale="unit", residual=True,
+                         quant=int8)
+    sp = build_flow_net(0, dev, head_scale="unit", residual=True,
+                        quant=int8, spatial=SpatialConfig(mesh, warp_halo=8))
+    for m in (ref, sp):
+        m.load_state_dict(ranges, strict=False)
+    fwd = make_spatial_forward(lambda m, ims: m(ims), mesh)
+    with torch.no_grad():
+        want = ref(x)
+        kernels.reset_launch_counts()
+        got = unshard_batch_spatial(fwd(sp, shard_batch_spatial(x, mesh)),
+                                    mesh)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["cost_volume_haloed_cuda"] > 0
+    assert float(want.abs().max()) > 0.0
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * max(1.0, float(want.abs().max())), err

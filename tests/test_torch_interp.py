@@ -420,10 +420,13 @@ def test_pretrain_app_runs_on_cpu(capsys, tmp_path):
 
 @pytest.mark.parametrize("extra", [["--debug-nan", "true"]])
 def test_pretrain_app_refuses_unported_modes(tmp_path, extra):
-    with pytest.raises(NotImplementedError):
-        pretrain_interp.main(APP_ARGS + ["--steps", "2", "--run-root",
-                                         str(tmp_path)] + extra)
-    assert not any(tmp_path.iterdir())
+    """--debug-nan, once refused, is accepted: the run finishes with
+    finite losses (tests/test_torch_profiling.py holds its losses to the
+    run without it and its FloatingPointError at a NaN)."""
+    metrics = pretrain_interp.main(APP_ARGS + ["--steps", "2", "--run-root",
+                                               str(tmp_path)] + extra)
+    assert all(np.isfinite(v) for v in metrics.values())
+    assert (tmp_path / "000" / "ckpt").is_dir()
 
 
 @pytest.mark.parametrize("data", ["synthetic", "dummy"])

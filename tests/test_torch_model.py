@@ -249,7 +249,10 @@ def test_port_imports_no_jax(check):
             "qpwcnet_torch.train.checkpoint, qpwcnet_torch.train.metrics, "
             "qpwcnet_torch.apps.data_tools, qpwcnet_torch.data.triplet, "
             "qpwcnet_torch.data.fchairs3d, qpwcnet_torch.utils.cache, "
-            "qpwcnet_torch.vis; "
+            "qpwcnet_torch.vis, qpwcnet_torch.train.schedules, "
+            "qpwcnet_torch.ops.occlusion, qpwcnet_torch.ops.flow_vis, "
+            "qpwcnet_torch.utils.profiling, qpwcnet_torch.apps.show_network, "
+            "qpwcnet_torch.quantize.int8, qpwcnet_torch.parallel.spatial; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; "
             "assert not bad, bad")

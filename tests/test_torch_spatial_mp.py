@@ -1,8 +1,9 @@
 """The mesh over torch.distributed processes (gloo on CPU) against the
 local transport: the H-sharded forward and train step on model 2 and on
 data 2 x model 2 processes equal the local mesh's (all shards in one
-process), and a data-parallel step over 2 processes equals the unsharded
-step, BatchNorm statistics included.
+process), a data-parallel step over 2 processes equals the unsharded
+step, BatchNorm statistics included, and the int8 model's sharded forward
+over 2 processes (int8 halo rows) equals the local mesh's.
 
 Each case spawns this file as a script, one process a rank (``python
 tests/test_torch_spatial_mp.py CASE RANK WORLD PORT OUT``): it imports
@@ -43,7 +44,7 @@ ADAM_EPS = 1e-8
 # (n_data, n_model) of each case's mesh; "partial" asks for a mesh of one
 # process in a world of two
 CASES = {"model2": (1, 2), "data2_model2": (2, 2), "data2": (2, 1),
-         "partial": (2, 1)}
+         "partial": (2, 1), "int8_model2": (1, 2)}
 CANCELLING = ("conv1x1.bias", "of_feats.3.pointwise.bias")
 
 
@@ -114,6 +115,46 @@ def _run(mesh, spatial: bool) -> dict:
     return out
 
 
+def _int8_flow(mesh) -> torch.Tensor:
+    """The int8 model's H-sharded forward on ``mesh`` (its convs exchange
+    their halo rows as int8 codes): :func:`_model`'s weights, and the
+    ranges from a QAT train-mode forward of the unsharded model on the
+    whole batch, which every process computes alike."""
+    import dataclasses
+
+    from qpwcnet_torch.models import build_flow_net
+    from qpwcnet_torch.parallel import (
+        SpatialConfig,
+        make_spatial_forward,
+        shard_batch_spatial,
+        unshard_batch_spatial,
+    )
+    from qpwcnet_torch.quantize import QuantConfig
+
+    batch, heads = _setup()
+    quant = {"qat": QuantConfig(), "int8": dataclasses.replace(
+        QuantConfig(), mode="int8")}
+    models = {}
+    for mode, q in quant.items():
+        models[mode] = build_flow_net(
+            0, "cpu", head_scale="unit", residual=True, quant=q,
+            spatial=SpatialConfig(mesh, warp_halo=8) if mode == "int8"
+            else None)
+        with torch.no_grad():
+            for blk, w in zip([models[mode].flower.flow_0,
+                               *models[mode].flower.upflows], heads):
+                blk.flow.of_flow.weight.copy_(w)
+    with torch.no_grad():
+        models["qat"].train()(batch["ims"])
+    model = models["int8"]
+    model.load_state_dict({k: v for k, v in models["qat"].state_dict()
+                           .items() if "amax" in k}, strict=False)
+    fwd = make_spatial_forward(lambda m, x: m(x), mesh)
+    with torch.no_grad():
+        return unshard_batch_spatial(
+            fwd(model, shard_batch_spatial(batch["ims"], mesh)), mesh)
+
+
 def _child(case: str, rank: int, world: int, port: int, out: str) -> None:
     import torch.distributed as dist
 
@@ -134,6 +175,9 @@ def _child(case: str, rank: int, world: int, port: int, out: str) -> None:
             res = {"refused": ""}
         except ValueError as e:
             res = {"refused": str(e)}
+    elif case == "int8_model2":
+        res = {"flow": _int8_flow(make_mesh(n_data=n_data,
+                                            n_model=n_model))}
     else:
         mesh = make_mesh(n_data=n_data, n_model=n_model)
         res = _run(mesh, spatial=n_model > 1)
@@ -265,6 +309,19 @@ if __name__ != "__main__":
         results = _spawn("data2", tmp_path)
         _same_on_every_rank(results)
         _check(results[0], want, noise)
+
+    def test_process_group_int8_forward_matches_local(tmp_path):
+        """The int8 model's H-sharded forward over 2 gloo processes, its
+        convs' halo rows sent as int8 codes by batch_isend_irecv, equals
+        the local transport's bit for bit (the same int8 products and the
+        same float ops on the same rows)."""
+        from qpwcnet_torch.parallel import make_mesh
+
+        want = _int8_flow(make_mesh(n_data=1, n_model=2))
+        results = _spawn("int8_model2", tmp_path)
+        assert float(want.abs().max()) > 0.1
+        for res in results:
+            assert torch.equal(res["flow"], want)
 
     def test_process_group_mesh_refuses_a_partial_world(tmp_path):
         """A mesh across processes must span every process: each runs
