@@ -2,7 +2,8 @@
 parameter-count tree, the forward's flops and bytes
 (``utils/profiling.py:cost_analysis``), its time and achieved TFLOP/s,
 and, with ``--trace-dir``, a torch.profiler trace of one forward
-(Chrome/Perfetto JSON; JAX's writes an XProf trace).
+(Chrome/Perfetto JSON; JAX's writes an XProf trace) that shows the
+model's levels as ``qpwcnet.<span>`` ranges (``utils/tracing.py``).
 
 The model is the JAX app's: ``build_flow_net`` or ``build_interpolator``
 from seed 0 (cv_impl='auto': the cost volumes run the CUDA kernel K1 on
@@ -18,6 +19,7 @@ import sys
 
 import torch
 
+from qpwcnet_torch.utils import tracing
 from qpwcnet_torch.utils.config import with_args
 
 
@@ -72,8 +74,12 @@ def run(cfg: Settings) -> dict:
            "forward_s": dt, "tflops": flops / dt / 1e12}
 
     if cfg.trace_dir:
-        with trace(cfg.trace_dir):
-            forward(ims)
+        was = tracing.enable()
+        try:
+            with trace(cfg.trace_dir):
+                forward(ims)
+        finally:
+            tracing.enable(was)
         print(f"trace written to {cfg.trace_dir}", file=sys.stderr)
         out["trace_dir"] = cfg.trace_dir
     return out

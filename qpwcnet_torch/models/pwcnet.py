@@ -16,6 +16,11 @@ dequantized features. The fused stem and upconv kernels are float-only:
 the builders refuse ``stem_stages`` (and ``build_flow_net``
 ``upconv_stages``) with ``quant``, and the Decoder runs its UpConv
 modules under ``quant``, as JAX's does.
+
+The forwards are spans of ``utils/tracing.py``: ``flow_net.forward`` or
+``interp.forward``, holding ``encoder``, ``decoder`` and ``flower``;
+``flower`` holds ``flower.l0`` (the FlowBlock), ``flower.l1`` ... (each
+upsample and UpFlowBlock) and ``flower.out`` (the last upsample).
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from qpwcnet_torch.parallel.transport import use_mesh
 from qpwcnet_torch.quantize.fake_quant import QuantConfig
 from qpwcnet_torch.quantize.qlayers import QConv, QConvTranspose
 from qpwcnet_torch.quantize.qtensor import dequantize
+from qpwcnet_torch.utils import tracing
 
 ENCODER_FILTERS = (16, 32, 64, 128, 256)
 DECODER_FILTERS = (128, 64, 32, 16)
@@ -82,15 +88,17 @@ class Encoder(nn.Module):
 
     def forward(self, img: torch.Tensor) -> list[torch.Tensor]:
         """img: (B, 3, H, W) -> [img, 1/2, ..., 1/32] NCHW features."""
-        feats = [img]
-        f = img.to(self.dtype)
-        for i, stage in enumerate(self.stages):
-            if i < self.stem_stages:
-                f = nchw(downconv_stage_trainable(nhwc(f).contiguous(),
-                                                  stage.params(), self.dtype))
-            else:
-                f = stage(f, emit_qtensor=self.chain_q)
-            feats.append(dequantize(f, self.dtype) if self.chain_q else f)
+        with tracing.span("encoder"):
+            feats = [img]
+            f = img.to(self.dtype)
+            for i, stage in enumerate(self.stages):
+                if i < self.stem_stages:
+                    f = nchw(downconv_stage_trainable(
+                        nhwc(f).contiguous(), stage.params(), self.dtype))
+                else:
+                    f = stage(f, emit_qtensor=self.chain_q)
+                feats.append(dequantize(f, self.dtype) if self.chain_q
+                             else f)
         return feats
 
 
@@ -123,18 +131,19 @@ class Decoder(nn.Module):
         self.stages = nn.ModuleList(stages)
 
     def forward(self, encs: list[torch.Tensor]) -> list[torch.Tensor]:
-        f = encs[-1]
-        decs = []
-        n = len(self.stages)
-        for k, stage in enumerate(self.stages):
-            if n - k <= self.upconv_stages:
-                f = nchw(upconv_stage_trainable(
-                    nhwc(f.to(self.dtype)).contiguous(), stage.params(),
-                    self.dtype))
-            else:
-                f = stage(f)
-            f = cat_channels([f, encs[-2 - k].to(f.dtype)])
-            decs.append(f)
+        with tracing.span("decoder"):
+            f = encs[-1]
+            decs = []
+            n = len(self.stages)
+            for k, stage in enumerate(self.stages):
+                if n - k <= self.upconv_stages:
+                    f = nchw(upconv_stage_trainable(
+                        nhwc(f.to(self.dtype)).contiguous(), stage.params(),
+                        self.dtype))
+                else:
+                    f = stage(f)
+                f = cat_channels([f, encs[-2 - k].to(f.dtype)])
+                decs.append(f)
         return decs
 
 
@@ -167,6 +176,9 @@ class Flower(nn.Module):
                         head_scale=head_scale, residual=residual,
                         spatial=spatial, quant=quant)
             for i, c in enumerate(dec_ch))
+        # the levels' span names, made once: a span costs no allocation
+        self.level_spans = tuple(f"flower.l{i}"
+                                 for i in range(self.num_levels + 1))
 
     def impl_at(self, i: int) -> str:
         if isinstance(self.cv_impl, tuple):
@@ -179,13 +191,17 @@ class Flower(nn.Module):
         return self.cv_impl
 
     def forward(self, enc_prv, enc_nxt, decs_prv, decs_nxt):
-        flo = self.flow_0(enc_prv, enc_nxt)
-        flos = [flo]
-        for i, upflow in enumerate(self.upflows):
-            flo_u = upsample2x_bilinear_nchw(flo, scale=2.0)
-            flo = upflow(decs_prv[i], decs_nxt[i], flo_u)
-            flos.append(flo)
-        flos.append(upsample2x_bilinear_nchw(flo, scale=2.0))
+        with tracing.span("flower"):
+            with tracing.span(self.level_spans[0]):
+                flo = self.flow_0(enc_prv, enc_nxt)
+            flos = [flo]
+            for i, upflow in enumerate(self.upflows):
+                with tracing.span(self.level_spans[i + 1]):
+                    flo_u = upsample2x_bilinear_nchw(flo, scale=2.0)
+                    flo = upflow(decs_prv[i], decs_nxt[i], flo_u)
+                flos.append(flo)
+            with tracing.span("flower.out"):
+                flos.append(upsample2x_bilinear_nchw(flo, scale=2.0))
         return flos
 
 
@@ -225,10 +241,11 @@ class PWCFlowNet(nn.Module):
                              spatial=spatial, quant=quant)
 
     def forward(self, inputs: torch.Tensor, multiscale: bool = False):
-        if self.spatial is None:
-            return self._forward(inputs, multiscale)
-        with use_mesh(self.spatial.mesh):
-            return self._forward(inputs, multiscale)
+        with tracing.span("flow_net.forward"):
+            if self.spatial is None:
+                return self._forward(inputs, multiscale)
+            with use_mesh(self.spatial.mesh):
+                return self._forward(inputs, multiscale)
 
     def _forward(self, inputs: torch.Tensor, multiscale: bool):
         x = nchw(inputs)
@@ -298,6 +315,11 @@ class PWCInterpolator(nn.Module):
 
     def forward(self, inputs: torch.Tensor, multiscale: bool = False,
                 return_flows: bool = False):
+        with tracing.span("interp.forward"):
+            return self._forward(inputs, multiscale, return_flows)
+
+    def _forward(self, inputs: torch.Tensor, multiscale: bool,
+                 return_flows: bool):
         x = nchw(inputs)
         img_prv = x[:, :3].contiguous(memory_format=CHANNELS_LAST)
         img_nxt = x[:, 3:].contiguous(memory_format=CHANNELS_LAST)

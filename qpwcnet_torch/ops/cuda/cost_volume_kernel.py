@@ -67,6 +67,7 @@ from qpwcnet_torch.ops.cost_volume import (
     cost_volume_plain_haloed,
 )
 from qpwcnet_torch.ops.cuda import _build
+from qpwcnet_torch.utils import tracing
 from torch.utils.flop_counter import register_flop_formula
 
 SEARCH_RANGE = 4  # the kernels' compiled search range (81 outputs)
@@ -100,7 +101,7 @@ def cost_volume_op(prv: torch.Tensor, nxt: torch.Tensor) -> torch.Tensor:
     """K1 on card tensors (B, H, W, C) x2 -> (B, H, W, 81), search range
     4; counts the launch on :func:`cost_volume_cuda`."""
     out = _launch_fwd(prv, nxt, SEARCH_RANGE, 0)
-    cost_volume_cuda.launches += 1
+    tracing.count("launches.cost_volume_cuda")
     return out
 
 
@@ -146,7 +147,7 @@ def cost_volume_haloed_cuda(prv: torch.Tensor, nxt_h: torch.Tensor,
     if not prv.is_cuda:
         return cost_volume_plain_haloed(prv, nxt_h, search_range=search_range)
     out = _launch_fwd(prv, nxt_h, search_range, search_range)
-    cost_volume_haloed_cuda.launches += 1
+    tracing.count("launches.cost_volume_haloed_cuda")
     return out
 
 
@@ -186,7 +187,7 @@ def cost_volume_bwd_prv_cuda(dacc: torch.Tensor,
     if not dacc.is_cuda:
         return cost_volume_bwd_prv_plain(dacc, nxt)
     out = _launch_bwd("qpw_cost_volume_bwd_prv", dacc, nxt, "nxt", 0, 0)
-    cost_volume_bwd_prv_cuda.launches += 1
+    tracing.count("launches.cost_volume_bwd_prv_cuda")
     return out
 
 
@@ -203,7 +204,7 @@ def cost_volume_bwd_prv_haloed_cuda(dacc: torch.Tensor,
         return cost_volume_bwd_prv_plain(dacc, nxt_h, nxt_h_haloed=True)
     out = _launch_bwd("qpw_cost_volume_bwd_prv", dacc, nxt_h, "nxt",
                       SEARCH_RANGE, 0)
-    cost_volume_bwd_prv_haloed_cuda.launches += 1
+    tracing.count("launches.cost_volume_bwd_prv_haloed_cuda")
     return out
 
 
@@ -218,7 +219,7 @@ def cost_volume_bwd_nxt_cuda(dacc: torch.Tensor,
     if not dacc.is_cuda:
         return cost_volume_bwd_nxt_plain(dacc, prv)
     out = _launch_bwd("qpw_cost_volume_bwd_nxt", dacc, prv, "prv", 0, 0)
-    cost_volume_bwd_nxt_cuda.launches += 1
+    tracing.count("launches.cost_volume_bwd_nxt_cuda")
     return out
 
 
@@ -235,13 +236,5 @@ def cost_volume_bwd_nxt_haloed_cuda(dacc: torch.Tensor,
         return cost_volume_bwd_nxt_plain(dacc, prv, h_haloed_out=True)
     out = _launch_bwd("qpw_cost_volume_bwd_nxt", dacc, prv, "prv", 0,
                       SEARCH_RANGE)
-    cost_volume_bwd_nxt_haloed_cuda.launches += 1
+    tracing.count("launches.cost_volume_bwd_nxt_haloed_cuda")
     return out
-
-
-cost_volume_cuda.launches = 0
-cost_volume_haloed_cuda.launches = 0
-cost_volume_bwd_prv_cuda.launches = 0
-cost_volume_bwd_prv_haloed_cuda.launches = 0
-cost_volume_bwd_nxt_cuda.launches = 0
-cost_volume_bwd_nxt_haloed_cuda.launches = 0

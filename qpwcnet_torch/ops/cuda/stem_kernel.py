@@ -58,6 +58,7 @@ import torch
 from qpwcnet_torch.ops.activations import mish
 from qpwcnet_torch.ops.cuda import _build, conv_gemm
 from qpwcnet_torch.quantize.qlayers import conv2d_same
+from qpwcnet_torch.utils import tracing
 
 # Output channel counts each dtype is compiled for: every width of the
 # encoder (models/pwcnet.py:ENCODER_FILTERS).
@@ -152,11 +153,8 @@ def downconv_stage_cuda(x: torch.Tensor, params: Params,
             b, h, w, c_in, c_out, _build.dtype_code(dtype),
             _build.stream_ptr(x.device))
     _build.check(err, "qpw_downconv_stage")
-    downconv_stage_cuda.launches += 1
+    tracing.count("launches.downconv_stage_cuda")
     return out
-
-
-downconv_stage_cuda.launches = 0
 
 
 class _TrainableStage(torch.autograd.Function):

@@ -67,6 +67,7 @@ import torch.nn.functional as F
 from qpwcnet_torch.layout import nchw, nhwc
 from qpwcnet_torch.ops.activations import mish
 from qpwcnet_torch.ops.cuda import _build, conv_gemm
+from qpwcnet_torch.utils import tracing
 
 # Output channel counts the kernel is compiled for: every stage of the
 # decoder (models/pwcnet.py:DECODER_FILTERS).
@@ -142,11 +143,8 @@ def upconv_stage_cuda(x: torch.Tensor, weight: torch.Tensor,
             b, h, w, c_in, c_out, _build.dtype_code(dtype),
             _build.stream_ptr(x.device))
     _build.check(err, "qpw_upconv_stage")
-    upconv_stage_cuda.launches += 1
+    tracing.count("launches.upconv_stage_cuda")
     return out
-
-
-upconv_stage_cuda.launches = 0
 
 
 class _TrainableUpConv(torch.autograd.Function):

@@ -33,6 +33,7 @@ from qpwcnet_torch.ops.cost_volume import cost_volume_plain
 from qpwcnet_torch.ops.cuda import _build
 from qpwcnet_torch.ops.cuda.cost_volume_kernel import N_DISP, SEARCH_RANGE
 from qpwcnet_torch.ops.warp import backward_warp, clip_balanced
+from qpwcnet_torch.utils import tracing
 from torch.utils.flop_counter import register_flop_formula
 
 # Window of the model's cv_impl='fused' inference path
@@ -69,7 +70,7 @@ def warp_cost_volume_op(prv: torch.Tensor, nxt: torch.Tensor,
             b, h, w, c, float(warp_window), _build.dtype_code(prv.dtype),
             _build.stream_ptr(prv.device))
     _build.check(err, "qpw_warp_cost_volume")
-    warp_cost_volume_cuda.launches += 1
+    tracing.count("launches.warp_cost_volume_cuda")
     return out
 
 
@@ -109,9 +110,6 @@ def warp_cost_volume_cuda(prv: torch.Tensor, nxt: torch.Tensor,
         raise ValueError(f"warp+cost volume needs H, W >= 2, got {(h, w)}")
     return torch.ops.qpwcnet.warp_cost_volume(prv, nxt, flow,
                                               float(warp_window))
-
-
-warp_cost_volume_cuda.launches = 0
 
 
 class _TrainableWarpCostVolume(torch.autograd.Function):

@@ -7,6 +7,12 @@ of its 'quant_stats') and a :class:`GradientChain`, the optax chain over
 the model's ``.grad``: NaN scrub -> [AGC] -> Adam. A QAT model's train
 steps update its ranges in the forward, before they are used (JAX's
 mutable 'quant_stats').
+
+Each step is the span ``train_step`` of ``utils/tracing.py``, with the
+phases ``step.zero_grad``, ``step.forward``, ``step.loss``,
+``step.backward``, ``step.optimizer`` (``opt.allreduce``,
+``opt.nan_scrub``, ``opt.agc``, ``opt.adam``) and, in the flow step,
+``step.epe``.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from qpwcnet_torch.train.losses import (
     multiscale_flow_loss,
     multiscale_interp_loss,
 )
+from qpwcnet_torch.utils import tracing
 
 
 class GradientChain:
@@ -54,12 +61,17 @@ class GradientChain:
         self.adam.zero_grad(set_to_none=True)
 
     def step(self) -> None:
-        reduce_active_grads(self.model)
-        zero_nan_grads(self.model)
-        if self.clip_factor is not None:
-            adaptive_clip_grads(self.model, self.clip_factor, self.eps,
-                                self.exclude)
-        self.adam.step()
+        with tracing.span("step.optimizer"):
+            with tracing.span("opt.allreduce"):
+                reduce_active_grads(self.model)
+            with tracing.span("opt.nan_scrub"):
+                zero_nan_grads(self.model)
+            if self.clip_factor is not None:
+                with tracing.span("opt.agc"):
+                    adaptive_clip_grads(self.model, self.clip_factor,
+                                        self.eps, self.exclude)
+            with tracing.span("opt.adam"):
+                self.adam.step()
         self.global_step += 1
 
     def state_dict(self) -> dict:
@@ -110,15 +122,20 @@ def make_flow_train_step(l2_gamma: float = 4e-6) -> Callable:
 
     def train_step(model: nn.Module, optimizer: GradientChain,
                    batch: dict) -> dict:
-        model.train()
-        optimizer.zero_grad()
-        outs = model(batch["ims"], multiscale=True)
-        loss = (multiscale_flow_loss(batch["flo"], outs)
-                + l2_regularization(model, l2_gamma))
-        loss.backward()
-        optimizer.step()
-        with torch.no_grad():
-            epe = epe_error(batch["flo"], outs[-1])
+        with tracing.span("train_step"):
+            model.train()
+            with tracing.span("step.zero_grad"):
+                optimizer.zero_grad()
+            with tracing.span("step.forward"):
+                outs = model(batch["ims"], multiscale=True)
+            with tracing.span("step.loss"):
+                loss = (multiscale_flow_loss(batch["flo"], outs)
+                        + l2_regularization(model, l2_gamma))
+            with tracing.span("step.backward"):
+                loss.backward()
+            optimizer.step()
+            with tracing.span("step.epe"), torch.no_grad():
+                epe = epe_error(batch["flo"], outs[-1])
         return {"loss": loss.detach(), "epe": epe}
 
     return train_step
@@ -182,19 +199,26 @@ def make_interp_train_step(l2_gamma: float = 4e-6,
 
     def train_step(model: nn.Module, optimizer: GradientChain,
                    batch: dict) -> dict:
-        model.train()
-        optimizer.zero_grad()
-        with _debug_nans(model) if debug_nan else contextlib.nullcontext():
-            outs = model(batch["ims"], multiscale=True)
-            loss, per_scale = multiscale_interp_loss(batch["mid"], outs)
-            loss = loss + l2_regularization(model, l2_gamma)
+        with tracing.span("train_step"):
+            model.train()
+            with tracing.span("step.zero_grad"):
+                optimizer.zero_grad()
+            with _debug_nans(model) if debug_nan else \
+                    contextlib.nullcontext():
+                with tracing.span("step.forward"):
+                    outs = model(batch["ims"], multiscale=True)
+                with tracing.span("step.loss"):
+                    loss, per_scale = multiscale_interp_loss(batch["mid"],
+                                                             outs)
+                    loss = loss + l2_regularization(model, l2_gamma)
+                if debug_nan:
+                    _raise_on_nan("the loss", [loss])
+                with tracing.span("step.backward"):
+                    loss.backward()
             if debug_nan:
-                _raise_on_nan("the loss", [loss])
-            loss.backward()
-        if debug_nan:
-            _raise_on_nan("a gradient",
-                          (p.grad for p in model.parameters()))
-        optimizer.step()
+                _raise_on_nan("a gradient",
+                              (p.grad for p in model.parameters()))
+            optimizer.step()
         return {"loss": loss.detach(),
                 **{k: v.detach() for k, v in per_scale.items()}}
 

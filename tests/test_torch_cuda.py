@@ -117,7 +117,7 @@ def _check_cost_volume(dev, shape, dtype=torch.bfloat16, seed=0):
     nxt = _rand(rng, shape, dev, dtype)
     kernels.reset_launch_counts()
     _assert_close(cost_volume_cuda(prv, nxt), cost_volume_plain(prv, nxt))
-    assert cost_volume_cuda.launches == 1
+    assert kernels.launch_counts()["cost_volume_cuda"] == 1
 
 
 @pytest.mark.cuda
@@ -166,7 +166,7 @@ def test_cost_volume_launches_one_kernel(dev, dtype):
     body = ("cost_volume_mma_kernel" if dtype == torch.bfloat16
             else "correlate_kernel<float, false>")
     assert len(names) == 1 and body in names[0], names
-    assert cost_volume_cuda.launches == 1
+    assert kernels.launch_counts()["cost_volume_cuda"] == 1
 
 
 @pytest.mark.cuda
@@ -179,7 +179,7 @@ def test_warp_cost_volume_kernel(dev, dtype):
     kernels.reset_launch_counts()
     _assert_close(warp_cost_volume_cuda(prv, nxt, flow),
                   warp_cost_volume_plain(prv, nxt, flow))
-    assert warp_cost_volume_cuda.launches == 1
+    assert kernels.launch_counts()["warp_cost_volume_cuda"] == 1
 
 
 def _check_warp_cv(dev, shape, seed, scale=6.0, views=None):
@@ -195,7 +195,7 @@ def _check_warp_cv(dev, shape, seed, scale=6.0, views=None):
     kernels.reset_launch_counts()
     _assert_close(warp_cost_volume_cuda(prv, nxt, flow),
                   warp_cost_volume_plain(prv, nxt, flow))
-    assert warp_cost_volume_cuda.launches == 1
+    assert kernels.launch_counts()["warp_cost_volume_cuda"] == 1
 
 
 @pytest.mark.cuda
@@ -250,7 +250,7 @@ def test_warp_cost_volume_launches_one_kernel(dev, dtype):
     body = ("warp_cv_mma_kernel" if dtype == torch.bfloat16
             else "correlate_kernel<float, true>")
     assert len(names) == 1 and body in names[0], names
-    assert warp_cost_volume_cuda.launches == 1
+    assert kernels.launch_counts()["warp_cost_volume_cuda"] == 1
 
 
 @pytest.mark.cuda
@@ -301,7 +301,7 @@ def test_downconv_stage_kernel(dev, dtype, cin, cout):
                                            float(want.float().abs().max()))
     else:
         _assert_close(got, want)
-    assert downconv_stage_cuda.launches == 1
+    assert kernels.launch_counts()["downconv_stage_cuda"] == 1
 
 
 def _stem_params(rng, dev, cin, cout):
@@ -327,7 +327,7 @@ def _check_stem(dev, dtype, shape, cout, seed):
     ulps = 4 if dtype == torch.bfloat16 else 1
     assert err <= ulps * REL[dtype] * max(1.0,
                                           float(want.float().abs().max()))
-    assert downconv_stage_cuda.launches == 1
+    assert kernels.launch_counts()["downconv_stage_cuda"] == 1
 
 
 @pytest.mark.cuda
@@ -394,7 +394,7 @@ def test_downconv_stage_launches_one_kernel(dev, dtype):
     torch.cuda.synchronize()
     names = _device_kernels(lambda: downconv_stage_cuda(x, params, dtype))
     assert len(names) == 1 and "stem" in names[0], names
-    assert downconv_stage_cuda.launches == 1
+    assert kernels.launch_counts()["downconv_stage_cuda"] == 1
 
 
 @pytest.mark.cuda
@@ -409,7 +409,7 @@ def test_downconv_stage_raises_for_unbuilt_widths(dev):
         x = _rand(rng, (1, 8, 16, cin), dev, dtype)
         with pytest.raises(ValueError):
             downconv_stage_cuda(x, _stem_params(rng, dev, cin, cout), dtype)
-    assert downconv_stage_cuda.launches == 0
+    assert kernels.launch_counts()["downconv_stage_cuda"] == 0
 
 
 @pytest.mark.cuda
@@ -450,7 +450,7 @@ def test_downconv_stage_wide_launches(dev, dtype, cin, cout):
     assert len(names) == 4, names
     assert "prep_w33" in names[0]
     assert all("conv_gemm" in n for n in names[1:]), names
-    assert downconv_stage_cuda.launches == 1
+    assert kernels.launch_counts()["downconv_stage_cuda"] == 1
 
 
 @pytest.mark.cuda
@@ -470,7 +470,7 @@ def test_downconv_trainable_wide_grads_match_plain_autograd(dev, cin, cout):
     downconv_stage_plain(
         leaves[n], [(leaves[n + i], leaves[n + i + 1])
                     for i in range(1, n, 2)], torch.float32).backward(g)
-    assert downconv_stage_cuda.launches == 1
+    assert kernels.launch_counts()["downconv_stage_cuda"] == 1
     for i in range(n):
         _assert_close(leaves[i].grad, leaves[n + i].grad)
 
@@ -490,8 +490,8 @@ def test_cost_volume_bwd_kernels(dev, dtype, shape):
                   cost_volume_bwd_prv_plain(dacc, nxt))
     _assert_close(cost_volume_bwd_nxt_cuda(dacc, prv),
                   cost_volume_bwd_nxt_plain(dacc, prv))
-    assert cost_volume_bwd_prv_cuda.launches == 1
-    assert cost_volume_bwd_nxt_cuda.launches == 1
+    assert kernels.launch_counts()["cost_volume_bwd_prv_cuda"] == 1
+    assert kernels.launch_counts()["cost_volume_bwd_nxt_cuda"] == 1
 
 
 def _check_bwd(dev, shape, seed, dacc=None, src=None):
@@ -504,8 +504,8 @@ def _check_bwd(dev, shape, seed, dacc=None, src=None):
                   cost_volume_bwd_prv_plain(dacc, src))
     _assert_close(cost_volume_bwd_nxt_cuda(dacc, src),
                   cost_volume_bwd_nxt_plain(dacc, src))
-    assert cost_volume_bwd_prv_cuda.launches == 1
-    assert cost_volume_bwd_nxt_cuda.launches == 1
+    assert kernels.launch_counts()["cost_volume_bwd_prv_cuda"] == 1
+    assert kernels.launch_counts()["cost_volume_bwd_nxt_cuda"] == 1
 
 
 @pytest.mark.cuda
@@ -561,7 +561,7 @@ def test_cost_volume_bwd_launches_one_kernel(dev, dtype):
         body = (f"cv_bwd_mma_kernel<{flag}" if dtype == torch.bfloat16
                 else f"cv_bwd_kernel<float, {flag}>")
         assert len(names) == 1 and body in names[0], names
-        assert kern.launches == 1
+        assert kernels.launch_counts()[kern.__name__] == 1
 
 
 @pytest.mark.cuda
@@ -650,7 +650,7 @@ def _check_upconv(dev, dtype, shape, cout, seed):
     ulps = 2 if dtype == torch.bfloat16 else 1
     assert err <= ulps * REL[dtype] * max(1.0,
                                           float(want.float().abs().max()))
-    assert upconv_stage_cuda.launches == 1
+    assert kernels.launch_counts()["upconv_stage_cuda"] == 1
 
 
 @pytest.mark.cuda
@@ -714,7 +714,7 @@ def test_upconv_stage_wide_launches(dev, dtype):
     names = _device_kernels(lambda: upconv_stage_cuda(x, w, b, dtype))
     assert len(names) == 2 and "prep_wt" in names[0], names
     assert "conv_gemm" in names[1], names
-    assert upconv_stage_cuda.launches == 1
+    assert kernels.launch_counts()["upconv_stage_cuda"] == 1
 
 
 @pytest.mark.cuda
@@ -773,7 +773,7 @@ def test_downconv_stage_wide_unaligned_input_is_copied(dev, case, cout):
     assert len(names) >= 5 and "prep_w33" in names[-4], names
     assert all("conv_gemm" in n for n in names[-3:]), names
     assert not any("prep" in n or "conv_gemm" in n for n in names[:-4])
-    assert downconv_stage_cuda.launches == 1
+    assert kernels.launch_counts()["downconv_stage_cuda"] == 1
 
 
 @pytest.mark.cuda
@@ -799,7 +799,7 @@ def test_upconv_stage_wide_unaligned_input_is_copied(dev, case):
     assert len(names) >= 3, names
     assert "prep_wt" in names[-2] and "conv_gemm" in names[-1], names
     assert not any("prep" in n or "conv_gemm" in n for n in names[:-2])
-    assert upconv_stage_cuda.launches == 1
+    assert kernels.launch_counts()["upconv_stage_cuda"] == 1
 
 
 @pytest.mark.cuda
@@ -814,7 +814,7 @@ def test_upconv_trainable_wide_grads_match_plain_autograd(dev):
     upconv_stage_trainable(leaves[0], [tuple(leaves[1:3])],
                            torch.float32).backward(g)
     upconv_stage_plain(*leaves[3:], torch.float32).backward(g)
-    assert upconv_stage_cuda.launches == 1
+    assert kernels.launch_counts()["upconv_stage_cuda"] == 1
     for i in range(3):
         _assert_close(leaves[i].grad, leaves[i + 3].grad)
 
@@ -869,7 +869,7 @@ def test_upconv_trainable_grads_match_plain_autograd(dev):
     upconv_stage_trainable(leaves[0], [tuple(leaves[1:3])],
                            torch.float32).backward(g)
     upconv_stage_plain(*leaves[3:], torch.float32).backward(g)
-    assert upconv_stage_cuda.launches == 1
+    assert kernels.launch_counts()["upconv_stage_cuda"] == 1
     for i in range(3):
         _assert_close(leaves[i].grad, leaves[i + 3].grad)
 

@@ -157,7 +157,10 @@ def test_show_network_on_cpu(capsys, tmp_path, model):
     assert "TFLOP/s achieved" in said.out and out["forward_s"] > 0
     assert out["params"] == int(summary.splitlines()[-1].split()[1]
                                 .replace(",", ""))
-    assert list(tmp_path.glob("*.pt.trace.json"))
+    traces = list(tmp_path.glob("*.pt.trace.json"))
+    assert traces
+    assert any(e.get("name") == "qpwcnet.flower" for e in
+               json.loads(traces[0].read_text())["traceEvents"])
     assert "trace written to" in said.err
 
 
