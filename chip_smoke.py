@@ -250,7 +250,16 @@ KERNELS = {
     "cost_volume_bwd_nxt_haloed": dict(
         source="qpwcnet_torch/csrc/cost_volume_bwd.cu",
         replaces="qpwcnet_tpu/ops/pallas/cost_volume_kernel.py:392"),
+    # no Pallas counterpart: XLA fuses the JAX package's bias add and Mish
+    "bias_mish": dict(
+        source="qpwcnet_torch/csrc/bias_mish.cu",
+        replaces="none (XLA fuses bias + Mish into the conv)"),
 }
+# The bias + Mish epilogue's shapes, (B, C, H, W) channels_last bf16:
+# flower.l4's widest conv at the headline (b8, 128 channels at 224x512),
+# encoder stage 1 of the train cell's step (2 x b32 frames, 16 channels
+# at 192x384), and C % 8 != 0 (the element-wise body)
+MISH_SHAPES = [(B, 128, H // 2, W // 2), (64, 16, 192, 384), (3, 20, 9, 11)]
 # The interpolator slice: the JAX bench's pretraining configuration
 # (bench.py:205-223), and the kernel model's options on it
 INTERP_B = 8
@@ -431,6 +440,13 @@ def counts_of(K1=0, K2=0, K3=0, K4a=0, K4b=0, K5=0, K1h=0, K4ah=0,
             "cost_volume_haloed_cuda": K1h,
             "cost_volume_bwd_prv_haloed_cuda": K4ah,
             "cost_volume_bwd_nxt_haloed_cuda": K4bh}
+
+
+def k_only(counts: dict) -> dict:
+    """The K1-K5 wrappers' part of a launch_counts() reading, which the
+    paths' checks compare with counts_of(); main() checks the bias + Mish
+    kernels' part on every path."""
+    return {k: counts[k] for k in counts_of()}
 
 
 def build(dtype, dev, hw=(H, W), k=1.5, **kw):
@@ -746,7 +762,7 @@ def phase_kernels_bwd(dev, errs):
         compare(f"CostVolumeFunction d{name} f32 ({b},{h},{w},{c}) vs "
                 "autograd of cost_volume_plain", leaves[i].grad,
                 want[name], REL_F32, {}, "function")
-    check(counts == counts_of(K1=1, K4a=1, K4b=1),
+    check(k_only(counts) == counts_of(K1=1, K4a=1, K4b=1),
           f"CostVolumeFunction launches {counts}")
     del leaves, gout, out_k, out_p, ddacc, want
     torch.cuda.empty_cache()
@@ -815,8 +831,9 @@ def phase_kernels_upconv(dev, errs):
             y = upconv_stage_plain(*leaves, torch.float32)
         y.backward(gout)
         torch.cuda.synchronize()
-        check(kernels.launch_counts() == counts_of(K5=int(fn == "kernel")),
-              f"trainable K5 {fn}: launches {kernels.launch_counts()}")
+        counts = kernels.launch_counts()
+        check(k_only(counts) == counts_of(K5=int(fn == "kernel")),
+              f"trainable K5 {fn}: launches {counts}")
         grads.append([t.grad for t in leaves])
     for name, got, want in zip(("x", "weight", "bias"), *grads):
         compare(f"upconv_stage_trainable d{name} f32 {shape}->{co} vs "
@@ -824,6 +841,46 @@ def phase_kernels_upconv(dev, errs):
                 "function")
     del x, w, b, gout, grads, leaves, y
     torch.cuda.empty_cache()
+
+
+def phase_kernels_mish(dev, errs):
+    """Phase 3e: the bias + Mish kernels. The forward against the
+    composition bit for bit (bf16 and float32); the backward's dx against
+    its PyTorch statement (bias_mish_backward_plain, the same float32
+    operations: one bf16 ulp of the magnitude at most) and dbias within
+    1e-5 of it (another summation order), repeated bit for bit."""
+    import torch
+
+    from qpwcnet_torch.ops.cuda.mish_kernel import (
+        bias_mish_backward_plain, bias_mish_bwd_cuda, bias_mish_cuda,
+        bias_mish_plain)
+
+    log("== phase 3e: bias + Mish (forward bit for bit, backward against "
+        "its plain statement)")
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    cl = torch.channels_last
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[-1]
+        for shape in MISH_SHAPES:
+            x = (6 * torch.randn(shape, generator=g, device=dev)).to(
+                dtype).contiguous(memory_format=cl)
+            b = torch.randn(shape[1], generator=g, device=dev)
+            compare(f"bias_mish forward {dn} {shape}", bias_mish_cuda(x, b),
+                    bias_mish_plain(x, b), 0.0, errs, "bias_mish")
+            gr = torch.randn(shape, generator=g, device=dev).to(
+                dtype).contiguous(memory_format=cl)
+            dx, db = bias_mish_bwd_cuda(x, b, gr)
+            want = bias_mish_backward_plain(x, b, gr)
+            compare(f"bias_mish backward dx {dn} {shape}", dx, want[0],
+                    REL_BF16 if dtype == torch.bfloat16 else 0.0, {},
+                    "bias_mish_bwd")
+            compare(f"bias_mish backward dbias {dn} {shape}", db, want[1],
+                    1e-5, {}, "bias_mish_bwd")
+            again = bias_mish_bwd_cuda(x, b, gr)
+            check(torch.equal(again[0], dx) and torch.equal(again[1], db),
+                  f"bias_mish backward {dn} {shape}: not repeatable")
+            del x, gr, dx, db, want, again
+        torch.cuda.empty_cache()
 
 
 def halo_shards(x, n, r=4):
@@ -973,11 +1030,11 @@ def phase_slice(dev):
                       f"{tuple(out.shape)} {out.dtype}")
                 check(bool(torch.isfinite(out).all()),
                       f"{mode} {dn}: non-finite flow")
-                want = expected.get(mode, {k: 0 for k in counts})
+                want = expected.get(mode, counts_of())
                 log(f"  {mode} {dn}: launches {counts} "
                     f"mean|flow|={float(out.abs().mean()):.3f} px")
-                check(counts == want, f"{mode} {dn}: launches {counts}, "
-                      f"expected {want}")
+                check(k_only(counts) == want, f"{mode} {dn}: launches "
+                      f"{counts}, expected {want}")
                 flows[mode, dtype] = out
                 models[mode, dtype] = m
             if dtype == bf16:
@@ -1049,8 +1106,13 @@ def phase_slice(dev):
             f"launches {main_counts}")
         check(len(errs) == 2 and all(np.isfinite(errs)), "infer errors")
         check(len(pngs) == 10, f"infer wrote {pngs}")
-        check(main_counts == counts_of(K1=8, K2=4, K3=2),
+        check(k_only(main_counts) == counts_of(K1=8, K2=4, K3=2),
               f"infer launches {main_counts}")
+        # bias + Mish after each of the 38 Mish convs that run as modules
+        # at stem_stages=2, in each of the 2 forwards
+        check((main_counts["bias_mish_cuda"],
+               main_counts["bias_mish_bwd_cuda"]) == (2 * 38, 0),
+              f"infer bias + Mish launches {main_counts}")
     return main_counts, x
 
 
@@ -1069,11 +1131,29 @@ def build_train(dtype, dev, k=TRAIN_K, **kw):
     return build(dtype, dev, hw=(TRAIN_H, TRAIN_W), k=k, **kw)
 
 
-def grad_step(model, batch, make_step=None):
+@contextlib.contextmanager
+def plain_epilogue():
+    """Every caller of the bias + Mish epilogue (each looks up
+    ``mish_kernel.bias_mish_cuda``) runs the composition
+    (``mish_kernel.bias_mish_plain``) instead of the kernels: a plain
+    model then runs no hand-written kernel, so the gradient checks hold
+    the kernel models, the bias + Mish kernels among them, against plain
+    PyTorch."""
+    from qpwcnet_torch.ops.cuda import mish_kernel
+
+    saved = mish_kernel.bias_mish_cuda
+    mish_kernel.bias_mish_cuda = mish_kernel.bias_mish_plain
+    try:
+        yield
+    finally:
+        mish_kernel.bias_mish_cuda = saved
+
+
+def grad_step(model, batch, make_step=None, plain=False):
     """One train step (make_flow_train_step unless ``make_step`` names
     another step maker) with the plain chain at learning rate 0, so the
-    parameters stay as they were. Returns (loss, {name: grad}, launch
-    counts of the step)."""
+    parameters stay as they were; ``plain``: under plain_epilogue().
+    Returns (loss, {name: grad}, launch counts of the step)."""
     import torch
 
     from qpwcnet_torch.ops import cuda as kernels
@@ -1081,7 +1161,8 @@ def grad_step(model, batch, make_step=None):
 
     opt = plain_optimizer(model, 0.0)
     kernels.reset_launch_counts()
-    m = (make_step or make_flow_train_step)()(model, opt, batch)
+    with plain_epilogue() if plain else contextlib.nullcontext():
+        m = (make_step or make_flow_train_step)()(model, opt, batch)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
@@ -1170,10 +1251,11 @@ def phase_train(dev):
         grads = {}
         for mode, kw in TRAIN_MODES:
             m = build_train(dtype, dev, **kw)
-            loss, grads[mode], counts = grad_step(m, batch)
+            loss, grads[mode], counts = grad_step(m, batch,
+                                                  plain=mode == "plain")
             log(f"  {mode} {dn}: loss {loss:.6f}, launches {counts}")
             check(np.isfinite(loss), f"{mode} {dn}: loss {loss}")
-            check(counts == per_step[mode], f"{mode} {dn}: launches "
+            check(k_only(counts) == per_step[mode], f"{mode} {dn}: launches "
                   f"{counts}, expected {per_step[mode]}")
             if mode == "plain":
                 # the flow entering the finest UpFlow, where 'fast' clamps
@@ -1187,7 +1269,7 @@ def phase_train(dev):
                 if dtype == bf16:
                     # R6: the plain bf16 step again, on a fresh model
                     _, again, _ = grad_step(build_train(dtype, dev, **kw),
-                                            batch)
+                                            batch, plain=True)
                     differ = [n for n in again
                               if not torch.equal(again[n], grads[mode][n])]
                     same = len(again) - len(differ)
@@ -1209,8 +1291,9 @@ def phase_train(dev):
     grads = {}
     for mode, kw in (TRAIN_MODES[0], TRAIN_MODES[2]):
         m = build_train(f32, dev, k=0.0, **kw)
-        _, grads[mode], counts = grad_step(m, batch)
-        check(counts == per_step[mode], f"fresh {mode}: launches {counts}")
+        _, grads[mode], counts = grad_step(m, batch, plain=mode == "plain")
+        check(k_only(counts) == per_step[mode],
+              f"fresh {mode}: launches {counts}")
         del m
     compare_grads("fresh 'diag' exact vs plain grads float32",
                   grads["exact"], grads["plain"])
@@ -1245,9 +1328,14 @@ def phase_train(dev):
     # K1 in every forward (steps, held-out evals, recalibration passes),
     # K4a and K4b in every step's backward; cv_impl='auto', stem_stages=0
     n_fwd = steps + steps // log_every + recal
-    check(main_counts == counts_of(K1=5 * n_fwd, K4a=5 * steps,
-                                   K4b=5 * steps),
+    check(k_only(main_counts) == counts_of(K1=5 * n_fwd, K4a=5 * steps,
+                                           K4b=5 * steps),
           f"train app launches {main_counts}")
+    # bias + Mish after each of the 44 Mish convs (stem_stages=0) in every
+    # forward, and their backward in every step
+    check((main_counts["bias_mish_cuda"],
+           main_counts["bias_mish_bwd_cuda"]) == (44 * n_fwd, 44 * steps),
+          f"train app bias + Mish launches {main_counts}")
     return main_counts, batch
 
 
@@ -1324,7 +1412,7 @@ def phase_interp(dev, x):
                 torch.cuda.synchronize()
                 counts = kernels.launch_counts()
                 want = per_fwd if mode == "exact" else counts_of()
-                check(counts == want, f"interp {mode} {dn}: launches "
+                check(k_only(counts) == want, f"interp {mode} {dn}: launches "
                       f"{counts}, expected {want}")
                 img = outs[mode][0]
                 check(tuple(img.shape) == (INTERP_B, TRAIN_H, TRAIN_W, 3)
@@ -1356,7 +1444,7 @@ def phase_interp(dev, x):
             counts = kernels.launch_counts()
             want = counts_of(K1=5, K2=2, K5=2) if mode == "exact" else \
                 counts_of()
-            check(counts == want, f"flow net upconv_stages=2 {mode}: "
+            check(k_only(counts) == want, f"flow net upconv_stages=2 {mode}: "
                   f"launches {counts}")
             del m
         log(f"  PWCFlowNet {H}x{W} b{B} bf16, upconv_stages=2: launches "
@@ -1375,12 +1463,13 @@ def phase_interp(dev, x):
         for mode, kw in (("exact", INTERP_KW), ("plain", PLAIN_KW)):
             m = build_interp(dtype, dev, k=TRAIN_K, **kw)
             loss, grads[mode], counts = grad_step(m, batch,
-                                                  make_interp_train_step)
+                                                  make_interp_train_step,
+                                                  plain=mode == "plain")
             want = per_step if mode == "exact" else counts_of()
             log(f"  pretraining step {mode} {dn}: loss {loss:.6f}, "
                 f"launches {counts}")
             check(np.isfinite(loss), f"interp {mode} {dn}: loss {loss}")
-            check(counts == want, f"interp step {mode} {dn}: launches "
+            check(k_only(counts) == want, f"interp step {mode} {dn}: launches "
                   f"{counts}, expected {want}")
             del m
             torch.cuda.empty_cache()
@@ -1428,7 +1517,7 @@ def phase_interp(dev, x):
     check(all(np.isfinite(losses)) and bool(torch.isfinite(img).all()),
           "interp main path: non-finite")
     n_fwd = n_steps + 1
-    check(interp_counts == counts_of(K1=5 * n_fwd, K2=2 * n_fwd,
+    check(k_only(interp_counts) == counts_of(K1=5 * n_fwd, K2=2 * n_fwd,
                                      K5=2 * n_fwd, K4a=5 * n_steps,
                                      K4b=5 * n_steps),
           f"interp main path launches {interp_counts}")
@@ -1454,7 +1543,7 @@ def phase_interp(dev, x):
     # K4a and K4b in every step's backward; cv_impl='auto', no stem or
     # upconv kernels (the JAX app's model)
     n_fwd = steps + steps // log_every + recal
-    check(app_counts == counts_of(K1=5 * n_fwd, K4a=5 * steps,
+    check(k_only(app_counts) == counts_of(K1=5 * n_fwd, K4a=5 * steps,
                                   K4b=5 * steps),
           f"pretrain app launches {app_counts}")
 
@@ -1473,7 +1562,7 @@ def phase_interp(dev, x):
     check(len(results) == 2 and all(np.isfinite(r["psnr"]) for r in results),
           "interp_infer PSNR")
     check(len(pngs) == 14, f"interp_infer wrote {pngs}")
-    check(infer_counts == counts_of(K1=10), f"interp_infer launches "
+    check(k_only(infer_counts) == counts_of(K1=10), f"interp_infer launches "
           f"{infer_counts}")
     return {"interp": interp_counts, "pretrain_app": app_counts,
             "interp_infer_app": infer_counts}, batch
@@ -1514,8 +1603,8 @@ def phase_fused(dev, x, batch, ibatch):
                 counts = kernels.launch_counts()
                 log(f"  flow forward {mode} {dn} {H}x{W} b{B}: launches "
                     f"{counts}, mean|flow|={float(out.abs().mean()):.3f} px")
-                check(counts == fwd[mode], f"fused flow forward {mode} "
-                      f"{dn}: launches {counts}, expected {fwd[mode]}")
+                check(k_only(counts) == fwd[mode], f"fused flow forward "
+                      f"{mode} {dn}: launches {counts}, expected {fwd[mode]}")
                 if dtype == bf16:
                     paths[f"fused_infer_{mode}"] = counts
                 if mode == "exact":
@@ -1540,12 +1629,13 @@ def phase_fused(dev, x, batch, ibatch):
                          ("fast", dict(cv_impl="fast", **FUSED_KW)),
                          ("plain", PLAIN_KW)):
             m = build_train(dtype, dev, **kw)
-            loss, grads[mode], counts = grad_step(m, batch)
+            loss, grads[mode], counts = grad_step(m, batch,
+                                                  plain=mode == "plain")
             log(f"  train step {mode} {dn}: loss {loss:.6f}, launches "
                 f"{counts}")
             check(np.isfinite(loss), f"fused {mode} {dn}: loss {loss}")
-            check(counts == per_step[mode], f"fused train step {mode} {dn}: "
-                  f"launches {counts}, expected {per_step[mode]}")
+            check(k_only(counts) == per_step[mode], f"fused train step "
+                  f"{mode} {dn}: launches {counts}, expected {per_step[mode]}")
             if dtype == bf16 and mode == "exact":
                 paths["fused_train"] = counts
             del m
@@ -1571,7 +1661,7 @@ def phase_fused(dev, x, batch, ibatch):
                 torch.cuda.synchronize()
                 counts = kernels.launch_counts()
                 want = fwd["exact"] if mode == "fused" else counts_of()
-                check(counts == want, f"interp {mode} {dn}: launches "
+                check(k_only(counts) == want, f"interp {mode} {dn}: launches "
                       f"{counts}, expected {want}")
                 del m
             compare_model(f"fused interp image vs plain {dn}",
@@ -1592,13 +1682,14 @@ def phase_fused(dev, x, batch, ibatch):
                          ("plain", PLAIN_KW)):
             m = build_interp(dtype, dev, k=TRAIN_K, **kw)
             loss, grads[mode], counts = grad_step(m, ibatch,
-                                                  make_interp_train_step)
+                                                  make_interp_train_step,
+                                                  plain=mode == "plain")
             want = per_step["exact"] if mode == "fused" else counts_of()
             log(f"  pretraining step {mode} {dn}: loss {loss:.6f}, "
                 f"launches {counts}")
             check(np.isfinite(loss), f"interp {mode} {dn}: loss {loss}")
-            check(counts == want, f"fused pretraining step {mode} {dn}: "
-                  f"launches {counts}, expected {want}")
+            check(k_only(counts) == want, f"fused pretraining step {mode} "
+                  f"{dn}: launches {counts}, expected {want}")
             del m
             torch.cuda.empty_cache()
         compare_grads(f"fused interp vs plain grads {dn}", grads["fused"],
@@ -1639,7 +1730,7 @@ def phase_fused(dev, x, batch, ibatch):
     check(all(np.isfinite(losses)) and bool(torch.isfinite(img).all()),
           "fused interp main path: non-finite")
     n_fwd = n_steps + 1
-    check(paths["fused_interp"] == counts_of(
+    check(k_only(paths["fused_interp"]) == counts_of(
         K1=5 * n_fwd, K2=5 * n_fwd, K5=4 * n_fwd, K4a=5 * n_steps,
         K4b=5 * n_steps), f"fused interp main path launches "
           f"{paths['fused_interp']}")
@@ -1721,7 +1812,7 @@ def phase_spatial(dev, x, batch):
                 f"warp clamps at {warp_clamp_share(flows, halo, n, H)}")
             check(tuple(out.shape) == (n * B, H // n, W, 2),
                   f"sharded forward {dn}: output {tuple(out.shape)}")
-            check(counts == spatial_counts(H, n),
+            check(k_only(counts) == spatial_counts(H, n),
                   f"sharded forward {dn}: launches {counts}")
             # JAX's own bound for this comparison is 2e-3 (float32,
             # tests/test_spatial.py); bf16 keeps phase 4's model bound
@@ -1770,9 +1861,9 @@ def phase_spatial(dev, x, batch):
         log(f"  sharded train step {dn}: loss {loss_s:.6f} (unsharded "
             f"{loss_u:.6f}), launches {counts_s}")
         check(np.isfinite(loss_s), f"sharded step {dn}: loss {loss_s}")
-        check(counts_u == counts_of(K1=5, K4a=5, K4b=5),
+        check(k_only(counts_u) == counts_of(K1=5, K4a=5, K4b=5),
               f"unsharded step {dn}: launches {counts_u}")
-        check(counts_s == per_step, f"sharded step {dn}: launches "
+        check(k_only(counts_s) == per_step, f"sharded step {dn}: launches "
               f"{counts_s}, expected {per_step}")
         # the loss: float32 to 1e-5 (tests/test_spatial.py's); bf16 to
         # 5e-3, phase 4's mean bound on the flows it is a mean of
@@ -1965,7 +2056,7 @@ def phase_ckpt(dev, batch):
         check(not diff, "train_flow resumed run differs from the "
               f"uninterrupted one: {diff}")
         n_steps, n_fwd = 4 + 2 + 2, 4 + 2 + 2 + 2 + 1 + 1
-        check(paths["train_resume"] == counts_of(
+        check(k_only(paths["train_resume"]) == counts_of(
             K1=5 * n_fwd, K4a=5 * n_steps, K4b=5 * n_steps),
             f"train_flow resume launches {paths['train_resume']}")
 
@@ -1990,7 +2081,7 @@ def phase_ckpt(dev, batch):
             f"{paths['pretrain_resume']}")
         check(not diff, "pretrain_interp resumed run differs from the "
               f"uninterrupted one: {diff}")
-        check(paths["pretrain_resume"] == counts_of(
+        check(k_only(paths["pretrain_resume"]) == counts_of(
             K1=5 * n_fwd, K4a=5 * n_steps, K4b=5 * n_steps),
             f"pretrain resume launches {paths['pretrain_resume']}")
 
@@ -2022,7 +2113,8 @@ def phase_ckpt(dev, batch):
         check(len(shared) > 100 and not differ, f"transfer: {differ[:4]}")
         check(all(np.isfinite(v) for v in metrics.values()),
               "transfer run loss")
-        check(paths["transfer_app"] == counts_of(K1=5 * 3, K4a=10, K4b=10),
+        check(k_only(paths["transfer_app"])
+              == counts_of(K1=5 * 3, K4a=10, K4b=10),
               f"transfer launches {paths['transfer_app']}")
 
         # 5. eval_sintel on a Sintel-layout fixture at 436x1024.
@@ -2071,7 +2163,7 @@ def phase_ckpt(dev, batch):
               "predict-zero's")
         # float32 K1, 448x1024 b1: 2 recalibration and 2 eval forwards in
         # each of the first two runs, 2 eval forwards in the third
-        check(paths["eval_sintel_app"] == counts_of(K1=5 * 10),
+        check(k_only(paths["eval_sintel_app"]) == counts_of(K1=5 * 10),
               f"eval_sintel launches {paths['eval_sintel_app']}")
 
         # 6. infer --fast --load-ckpt and interp_infer --load-ckpt.
@@ -2102,12 +2194,12 @@ def phase_ckpt(dev, batch):
             f"{results}, launches {paths['interp_infer_ckpt_app']}")
         check(not loaded, f"infer --load-ckpt: {loaded[:4]}")
         check(len(errs) == 2 and all(np.isfinite(errs)), "infer errors")
-        check(paths["infer_ckpt_app"] == counts_of(K1=8, K2=4, K3=2),
+        check(k_only(paths["infer_ckpt_app"]) == counts_of(K1=8, K2=4, K3=2),
               f"infer --load-ckpt launches {paths['infer_ckpt_app']}")
         check(len(results) == 2
               and all(np.isfinite(r["psnr"]) for r in results),
               "interp_infer --load-ckpt PSNR")
-        check(paths["interp_infer_ckpt_app"] == counts_of(K1=10),
+        check(k_only(paths["interp_infer_ckpt_app"]) == counts_of(K1=10),
               f"interp_infer --load-ckpt launches "
               f"{paths['interp_infer_ckpt_app']}")
     torch.cuda.empty_cache()
@@ -2314,7 +2406,7 @@ def phase_data(dev, root) -> dict:
         check(all(np.isfinite(v) for v in m.values()) and saved,
               f"train_flow --data {mode}")
         n_fwd = DATA_STEPS + DATA_STEPS // DATA_LOG + DATA_RECAL
-        check(paths[f"data_{mode}"] == counts_of(
+        check(k_only(paths[f"data_{mode}"]) == counts_of(
             K1=5 * n_fwd, K4a=5 * DATA_STEPS, K4b=5 * DATA_STEPS),
             f"train_flow --data {mode} launches")
     for mode in ("vimeo", "ytvos", "dummy"):
@@ -2329,7 +2421,7 @@ def phase_data(dev, root) -> dict:
             f"wait {m.get('loader_wait_ms')} ms a step, checkpoint {saved}, "
             f"launches {paths[f'data_{mode}']}")
         check(np.isfinite(m["loss"]) and saved, f"pretrain --data {mode}")
-        check(paths[f"data_{mode}"] == counts_of(
+        check(k_only(paths[f"data_{mode}"]) == counts_of(
             K1=5 * (DATA_STEPS + DATA_RECAL), K4a=5 * DATA_STEPS,
             K4b=5 * DATA_STEPS), f"pretrain --data {mode} launches")
     results = app("data_interp_infer_vimeo", interp_infer.main, [
@@ -2342,7 +2434,7 @@ def phase_data(dev, root) -> dict:
     check(len(results) == 2 and all(np.isfinite(r["psnr"])
                                     for r in results), "interp_infer vimeo")
     check(len(pngs) == 14, f"interp_infer vimeo wrote {len(pngs)} PNGs")
-    check(paths["data_interp_infer_vimeo"] == counts_of(K1=10),
+    check(k_only(paths["data_interp_infer_vimeo"]) == counts_of(K1=10),
           "interp_infer vimeo launches")
     del os.environ["QPWCNET_TORCH_CACHE"]
 
@@ -2415,14 +2507,15 @@ def qat_steps(dev, build_fn, batch, make_step, per_step, tag):
     for mode, dtype, cv in (("plain", f32, "plain"), ("plain", bf16, "plain"),
                             ("kernel", bf16, "auto")):
         m = build_fn(dtype, cv)
-        loss, grads, counts = grad_step(m, batch, make_step)
+        loss, grads, counts = grad_step(m, batch, make_step,
+                                        plain=mode == "plain")
         dn = str(dtype).split(".")[-1]
         log(f"  {tag} QAT step {mode} {dn}: loss {loss:.6f}, launches "
             f"{counts}")
         check(np.isfinite(loss), f"{tag} QAT {mode} {dn}: loss {loss}")
         want = per_step if mode == "kernel" else counts_of()
-        check(counts == want, f"{tag} QAT {mode} {dn}: launches {counts}, "
-              f"expected {want}")
+        check(k_only(counts) == want, f"{tag} QAT {mode} {dn}: launches "
+              f"{counts}, expected {want}")
         res[mode, dtype] = (loss, grads, ranges_of(m), counts)
         del m
         torch.cuda.empty_cache()
@@ -2507,7 +2600,7 @@ def phase_quant(dev, x, batch, ibatch) -> dict:
                 kernels.reset_launch_counts()
                 want[mode] = ref(x)
                 torch.cuda.synchronize()
-                check(kernels.launch_counts() == counts_of(),
+                check(k_only(kernels.launch_counts()) == counts_of(),
                       f"int8 plain {mode}: launches")
                 hook.remove()
             got_m = int8_flow(dev, x, int8,
@@ -2522,7 +2615,7 @@ def phase_quant(dev, x, batch, ibatch) -> dict:
                 counts_of(K1=4, K3=1)
             log(f"  int8 {mode} bf16 {H}x{W} b{B}: launches {counts}, "
                 f"mean|flow|={float(got.abs().mean()):.3f} px")
-            check(counts == expect, f"int8 {mode}: launches {counts}, "
+            check(k_only(counts) == expect, f"int8 {mode}: launches {counts}, "
                   f"expected {expect}")
             paths[f"int8_infer_{mode}"] = counts
             compare_model(f"int8 {mode} kernels vs plain bf16", got,
@@ -2579,7 +2672,8 @@ def phase_quant(dev, x, batch, ibatch) -> dict:
             check(n_ranges >= 118 and not diff,
                   f"{name}: resumed run differs: {diff}")
             # each step and each log's held-out forward run K1
-            check(paths[name] == counts_of(K1=5 * 8, K4a=5 * 4, K4b=5 * 4),
+            check(k_only(paths[name])
+                  == counts_of(K1=5 * 8, K4a=5 * 4, K4b=5 * 4),
                   f"{name} launches {paths[name]}")
 
         out = tmp / "int8.npz"
@@ -2602,7 +2696,8 @@ def phase_quant(dev, x, batch, ibatch) -> dict:
         check(same and res["n_convs"] == 69, "convert_quant bundle")
         check(np.isfinite(res["check_pct"]), "convert_quant --check")
         # 3 calibration steps, then the int8 and float forwards
-        check(paths["convert_quant"] == counts_of(K1=25, K4a=15, K4b=15),
+        check(k_only(paths["convert_quant"])
+              == counts_of(K1=25, K4a=15, K4b=15),
               f"convert_quant launches {paths['convert_quant']}")
     log(f"  phase 4h took {time.perf_counter() - t_phase:.1f} s")
     return paths
@@ -2625,7 +2720,8 @@ def k1_flops(levels, batch) -> int:
 def graph_ops(exported) -> dict:
     """The calls of the kernels' custom ops in an ExportedProgram (its
     graph and any subgraph of it), by op name."""
-    counts = {"qpwcnet.cost_volume": 0, "qpwcnet.warp_cost_volume": 0}
+    counts = {"qpwcnet.cost_volume": 0, "qpwcnet.warp_cost_volume": 0,
+              "qpwcnet.bias_mish": 0}
     for gm in exported.graph_module.modules():
         graph = getattr(gm, "graph", None)
         for node in (graph.nodes if graph is not None else ()):
@@ -2668,7 +2764,7 @@ def show_network_path(dev, model, hw, levels, k1_batch) -> tuple:
         f" params, {lines[-2]}; {lines[-1]}; launches {counts}")
     check(f"TOTAL: {res['params']:,} params" in lines,
           f"show_network {model}: no TOTAL line")
-    check(counts == counts_of(K1=5 * 14), f"show_network {model}: "
+    check(k_only(counts) == counts_of(K1=5 * 14), f"show_network {model}: "
           f"launches {counts}, expected K1 5 x 14 forwards")
     traces = sorted(trace_dir.glob("*.pt.trace.json"))
     check(bool(traces), f"show_network {model}: no trace in {trace_dir}")
@@ -2730,7 +2826,7 @@ def debug_nan_path(dev, ibatch, root) -> dict:
     check(len(logged["true"]) == 2 and logged["true"] == logged["false"],
           "--debug-nan: the logged metrics differ from the run without it")
     # 2 steps and 2 held-out eval forwards
-    check(counts == counts_of(K1=20, K4a=10, K4b=10),
+    check(k_only(counts) == counts_of(K1=20, K4a=10, K4b=10),
           f"--debug-nan launches {counts}")
 
     model = build_interp(torch.bfloat16, dev, k=1.5)
@@ -2808,8 +2904,8 @@ def int8_spatial_path(dev, x, calib) -> dict:
         got = unshard_batch_spatial(out, mesh)
         log(f"  int8 exact sharded {H}x{W} b{B} in {n} shards: launches "
             f"{counts}")
-        check(counts == spatial_counts(H, n), f"int8 sharded: launches "
-              f"{counts}, expected {spatial_counts(H, n)}")
+        check(k_only(counts) == spatial_counts(H, n), f"int8 sharded: "
+              f"launches {counts}, expected {spatial_counts(H, n)}")
         check(counts["cost_volume_haloed_cuda"] > 0, "int8 sharded: no "
               "haloed K1 launch")
         compare_model("int8 sharded vs unsharded bf16", got, want,
@@ -2849,7 +2945,7 @@ def export_path(dev, root) -> dict:
     h, w = EXPORT_HW
     x1 = torch.from_numpy(np.random.RandomState(1).uniform(
         -0.5, 0.5, (1, h, w, 6)).astype(np.float32)).to(dev)
-    total = counts_of()
+    total = dict.fromkeys(kernels.launch_counts(), 0)
     for mode in ("exact", "fast"):
         path = root / f"int8_{mode}.pt2"
         t0 = time.perf_counter()
@@ -2869,8 +2965,11 @@ def export_path(dev, root) -> dict:
         t_export = time.perf_counter() - t0
         exported = torch.export.load(str(path))
         ops = graph_ops(exported)
+        # the epilogue of each of the 44 Mish convs (no stem kernel in
+        # int8) is the op too, so the program runs the bias + Mish kernel
         want_ops = {"qpwcnet.cost_volume": 5 if mode == "exact" else 4,
-                    "qpwcnet.warp_cost_volume": 0 if mode == "exact" else 1}
+                    "qpwcnet.warp_cost_volume": 0 if mode == "exact" else 1,
+                    "qpwcnet.bias_mish": 44}
         log(f"  convert_quant --export {mode} {h}x{w} b1: {path.stat().st_size}"
             f" bytes, {len(exported.graph.nodes)} nodes, custom ops {ops} "
             f"({t_export:.1f} s to here)")
@@ -2882,11 +2981,13 @@ def export_path(dev, root) -> dict:
                                            strict=False)
         check(not missing, f"export {mode}: state without {missing[:4]}")
         prog = exported.module()
+        before = kernels.launch_counts()["bias_mish_cuda"]
         with torch.inference_mode():
             got = prog(x1)
             want = eager(x1)
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
+        epilogues = counts["bias_mish_cuda"] - before
         same = bool(torch.equal(got, want))
         log(f"  loaded .pt2 {mode} on the card vs the eager int8 forward: "
             f"bit-equal {same}, mean|flow|={float(want.abs().mean()):.4f}"
@@ -2894,8 +2995,10 @@ def export_path(dev, root) -> dict:
         check(same and bool(torch.isfinite(got).all()),
               f"export {mode}: the loaded program differs")
         check(counts["cost_volume_cuda"] > 0 and (
-            mode == "exact" or counts["warp_cost_volume_cuda"] > 0),
-            f"export {mode}: launches {counts}")
+            mode == "exact" or counts["warp_cost_volume_cuda"] > 0)
+            and epilogues == 2 * 44,
+            f"export {mode}: launches {counts}, bias + Mish in the loaded "
+            f"program and the eager forward {epilogues}")
         total = {k: total[k] + counts[k] for k in total}
         del exported, prog, eager, got, want
         torch.cuda.empty_cache()
@@ -3123,6 +3226,57 @@ def device_time(fn) -> float:
         return math.nan
 
 
+def mish_times(dev, totals):
+    """The bias + Mish kernels at MISH_SHAPES in bf16 against the
+    composition (its forward; its autograd backward as the time of
+    forward + backward less the forward's), and their bound: bytes moved
+    once over 3.35 TB/s, 4 an element forward (x in, out out) and 6
+    backward (x and g in, dx out). The first shape (flower.l4) goes on the
+    kernels line."""
+    import torch
+
+    from qpwcnet_torch.ops.cuda.mish_kernel import (
+        bias_mish_bwd_cuda, bias_mish_cuda, bias_mish_plain)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    cl = torch.channels_last
+    for i, shape in enumerate(MISH_SHAPES[:2]):
+        x = (6 * torch.randn(shape, generator=g, device=dev)).to(
+            torch.bfloat16).contiguous(memory_format=cl)
+        b = torch.randn(shape[1], generator=g, device=dev)
+        gr = torch.randn(shape, generator=g, device=dev).to(
+            torch.bfloat16).contiguous(memory_format=cl)
+        n = x.numel()
+        bnd_f = (4 * n / PEAK_BYTES * 1e3, 0.0)
+        bnd_b = (6 * n / PEAK_BYTES * 1e3, 0.0)
+        p1, k1, k2, p2 = (time_ms(lambda: bias_mish_plain(x, b)),
+                          time_ms(lambda: bias_mish_cuda(x, b)),
+                          time_ms(lambda: bias_mish_cuda(x, b)),
+                          time_ms(lambda: bias_mish_plain(x, b)))
+        k, p = (k1 + k2) / 2, (p1 + p2) / 2
+        xr, br = x.clone().requires_grad_(), b.clone().requires_grad_()
+        both = time_ms(lambda: torch.autograd.grad(
+            bias_mish_plain(xr, br), (xr, br), gr))
+        pb = both - time_ms(lambda: bias_mish_plain(xr, br))
+        kb = time_ms(lambda: bias_mish_bwd_cuda(x, b, gr))
+        log(f"  bias_mish {shape} bf16: forward kernel {k:.4f} ms ({k1:.4f}"
+            f", {k2:.4f}) | composition {p:.4f} ms | x{p / k:.2f} | bound "
+            f"{bnd_f[0] * 1e3:.2f} us, kernel/bound x{k / bnd_f[0]:.2f}; "
+            f"backward kernel {kb:.4f} ms | composition's autograd "
+            f"{pb:.4f} ms | bound {bnd_b[0] * 1e3:.2f} us, kernel/bound "
+            f"x{kb / bnd_b[0]:.2f}")
+        kf = time_chain_ms(lambda: bias_mish_cuda(x, b))
+        kbc = time_chain_ms(lambda: bias_mish_bwd_cuda(x, b, gr))
+        kd = device_time(lambda: bias_mish_cuda(x, b))
+        log(f"    chained x20: forward {kf:.4f} ms (x{kf / bnd_f[0]:.2f} the "
+            f"bound), backward {kbc:.4f} ms (x{kbc / bnd_b[0]:.2f}); "
+            f"forward device {kd:.4f} ms (x{kd / bnd_f[0]:.2f})")
+        if i == 0:
+            totals.add("bias_mish", k, p, bnd_f)
+        del x, gr, xr, br
+        torch.cuda.empty_cache()
+
+
 class Totals:
     """Each kernel's summed times and bound over the shapes timed for the
     kernels line."""
@@ -3161,7 +3315,7 @@ def phase_times(dev, x, batch, ibatch):
         upconv_stage_cuda, upconv_stage_plain)
     from qpwcnet_torch.ops.cuda.warp_cv_kernel import (
         warp_cost_volume_cuda, warp_cost_volume_plain)
-    from qpwcnet_torch.quantize.qlayers import same_pads
+    from qpwcnet_torch.ops.conv import same_pads
     from qpwcnet_torch.utils.gemm_times import kernel_ms
 
     log(f"== phase 5: times (bf16, CUDA events, median of {N_TIMED} after "
@@ -3425,6 +3579,8 @@ def phase_times(dev, x, batch, ibatch):
                 "triplets/s")
             del m
         torch.cuda.empty_cache()
+
+    mish_times(dev, totals)
 
     # The train steps as the apps run them on synthetic data, one batch,
     # parameters updated every step: the flow step with the plain chain
@@ -3820,6 +3976,7 @@ def main() -> int:
     errs = phase_kernels(dev)
     phase_kernels_bwd(dev, errs)
     phase_kernels_upconv(dev, errs)
+    phase_kernels_mish(dev, errs)
     phase_kernels_haloed(dev, errs)
     infer_counts, x = phase_slice(dev)
     with cudnn_deterministic():
@@ -3841,6 +3998,15 @@ def main() -> int:
     paths = {"infer_app": infer_counts, "train_app": train_counts,
              **interp_paths, **ckpt_paths, **fused_paths, **spatial_paths,
              **quant_paths, **last_paths, **data_paths}
+    # every path runs Mish convs on the card (25 or more a forward in each
+    # configuration), each through the bias + Mish kernel, and a path
+    # that ran the cost volume's backward ran the epilogue's too
+    for p, c in paths.items():
+        bwd = (c["cost_volume_bwd_prv_cuda"]
+               + c["cost_volume_bwd_prv_haloed_cuda"])
+        check(c["bias_mish_cuda"] > 0 and (c["bias_mish_bwd_cuda"] > 0
+                                           or not bwd),
+              f"{p}: bias + Mish launches {c}")
     entries = []
     for name, meta in KERNELS.items():
         key = f"{name}_cuda"

@@ -32,6 +32,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 # C signatures of the entry points (restype is int: a cudaError_t).
 SIGNATURES = {
@@ -51,6 +52,10 @@ SIGNATURES = {
                            _I, _I, _I, _I, _I, _I, _P],
     # x, w, bias, out, wbuf, B, H, W, Ci, Co, dtype, stream
     "qpw_upconv_stage": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, bias, out, n, C, dtype, stream
+    "qpw_bias_mish": [_P, _P, _P, _L, _I, _I, _P],
+    # x, bias, g, dx, partial, dbias, rows, C, dtype, stream
+    "qpw_bias_mish_bwd": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _P],
 }
 # The wide stages' implicit GEMM (csrc/conv_gemm.cuh) takes its weights
 # in a scratch buffer the wrapper allocates, with Cin padded to a

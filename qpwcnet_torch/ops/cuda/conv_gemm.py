@@ -26,7 +26,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from qpwcnet_torch.ops.activations import mish
+from qpwcnet_torch.layout import nchw, nhwc
+from qpwcnet_torch.ops.cuda import mish_kernel
 from qpwcnet_torch.ops.cuda._build import GEMM_K, gemm_cip
 
 # csrc/conv_gemm.cuh's modes: a 3x3 stride-2 SAME conv on an even input,
@@ -125,8 +126,8 @@ def conv_gemm_plain(mode: int, x: torch.Tensor, w_prepared: torch.Tensor,
         wk = w_prepared[ph * ntap:(ph + 1) * ntap]
         y = a.reshape(-1, ntap * cip).float() @ (
             wk.permute(0, 2, 1).reshape(ntap * cip, co).float())
-        y = mish(y.to(dtype) + bias.to(dtype))
-        phases.append(y.reshape(b, hp, wp, co))
+        y = y.to(dtype).reshape(b, hp, wp, co)
+        phases.append(nhwc(mish_kernel.bias_mish_cuda(nchw(y), bias)))
     if mode != CONV_UP:
         return phases[0]
     out = phases[0].new_empty((b, 2 * h, 2 * w, co))

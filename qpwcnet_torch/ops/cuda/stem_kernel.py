@@ -55,9 +55,8 @@ from typing import Sequence
 
 import torch
 
-from qpwcnet_torch.ops.activations import mish
-from qpwcnet_torch.ops.cuda import _build, conv_gemm
-from qpwcnet_torch.quantize.qlayers import conv2d_same
+from qpwcnet_torch.ops.conv import conv2d_same
+from qpwcnet_torch.ops.cuda import _build, conv_gemm, mish_kernel
 from qpwcnet_torch.utils import tracing
 
 # Output channel counts each dtype is compiled for: every width of the
@@ -96,7 +95,7 @@ def downconv_stage_plain(x: torch.Tensor, params: Params,
     y = x.to(dtype).permute(0, 3, 1, 2)
     for k, (weight, bias) in enumerate(params):
         y = conv2d_same(y, weight.to(dtype), stride=2 if k == 0 else 1)
-        y = mish(y + bias.to(dtype)[:, None, None])
+        y = mish_kernel.bias_mish_cuda(y, bias)
     return y.permute(0, 2, 3, 1).contiguous()
 
 

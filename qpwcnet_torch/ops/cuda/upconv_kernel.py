@@ -65,8 +65,7 @@ import torch
 import torch.nn.functional as F
 
 from qpwcnet_torch.layout import nchw, nhwc
-from qpwcnet_torch.ops.activations import mish
-from qpwcnet_torch.ops.cuda import _build, conv_gemm
+from qpwcnet_torch.ops.cuda import _build, conv_gemm, mish_kernel
 from qpwcnet_torch.utils import tracing
 
 # Output channel counts the kernel is compiled for: every stage of the
@@ -93,8 +92,7 @@ def upconv_stage_plain(x: torch.Tensor, weight: torch.Tensor,
     """
     y = F.conv_transpose2d(nchw(x.to(dtype)), weight.to(dtype), stride=2,
                            padding=1)
-    y = mish(y + bias.to(dtype)[:, None, None])
-    return nhwc(y).contiguous()
+    return nhwc(mish_kernel.bias_mish_cuda(y, bias)).contiguous()
 
 
 def upconv_stage_cuda(x: torch.Tensor, weight: torch.Tensor,

@@ -15,7 +15,7 @@ Under an H-sharded mesh (qpwcnet_torch.parallel) the input is one
 shard's rows: H takes the SAME padding of the whole image, filled with
 the neighbouring shards' int8 codes (``parallel/transport.py:halo_rows``)
 and with zeros only at the global ends, as the float convs do
-(``quantize/qlayers.py:conv2d_same``), so each shard's int32 rows are the
+(``ops/conv.py:conv2d_same``), so each shard's int32 rows are the
 unsharded conv's. The scales are replicated, so nothing else crosses
 shards.
 
@@ -36,6 +36,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from qpwcnet_torch.layout import nchw, nhwc
+from qpwcnet_torch.ops.conv import same_pads
 from qpwcnet_torch.parallel.transport import active_shards, halo_rows
 from qpwcnet_torch.quantize.qtensor import QTensor
 
@@ -86,12 +87,6 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     b_cm = F.pad(b.t(), (0, kp - k, 0, np_ - n)).contiguous().t()
     out = torch._int_mm(a, b_cm)
     return out[:m, :n] if (mp, np_) != (m, n) else out
-
-
-def _same_pads(size: int, k: int, s: int) -> tuple[int, int]:
-    out = -(-size // s)
-    total = max((out - 1) * s + k - size, 0)
-    return total // 2, total - total // 2
 
 
 def _im2col_conv(xq: torch.Tensor, kq: torch.Tensor, stride: int,
@@ -180,11 +175,11 @@ def _shard_rows(xq: torch.Tensor, kh: int, stride: int) -> tuple:
     shards = active_shards()
     h = xq.shape[1]
     if shards is None:
-        return xq, _same_pads(h, kh, stride)
+        return xq, same_pads(h, kh, stride)
     if h % stride:
         raise ValueError(f"an H shard of {h} rows does not split by the "
                          f"conv's stride {stride}")
-    pt, pb = _same_pads(h * shards.n, kh, stride)
+    pt, pb = same_pads(h * shards.n, kh, stride)
     return halo_rows(xq, 1, pt, pb), (0, 0)
 
 
@@ -220,7 +215,7 @@ def int8_conv_int32(xq: torch.Tensor, kq: torch.Tensor, stride: int = 1,
         y = _im2col_conv(dil, kq, 1, tuple(pads))
         return y.narrow(1, stride, stride * h) if sharded else y
     xq, h_pads = _shard_rows(xq, kh, stride)
-    w_pads = _same_pads(xq.shape[2], kw, stride)
+    w_pads = same_pads(xq.shape[2], kw, stride)
     if groups > 1:
         if not (groups == xq.shape[-1] == kq.shape[-1] and kq.shape[2] == 1
                 and stride == 1):

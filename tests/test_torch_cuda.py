@@ -36,6 +36,12 @@ from qpwcnet_torch.ops.cuda.cost_volume_kernel import (
     cost_volume_cuda,
     cost_volume_haloed_cuda,
 )
+from qpwcnet_torch.ops.cuda import mish_kernel
+from qpwcnet_torch.ops.cuda.mish_kernel import (
+    bias_mish_bwd_cuda,
+    bias_mish_cuda,
+    bias_mish_plain,
+)
 from qpwcnet_torch.ops.cuda.stem_kernel import (
     downconv_stage_cuda,
     downconv_stage_plain,
@@ -578,7 +584,8 @@ def test_cost_volume_function_grads_match_plain_autograd(dev):
         "warp_cost_volume_cuda": 0, "cost_volume_bwd_prv_cuda": 1,
         "cost_volume_bwd_nxt_cuda": 1, "upconv_stage_cuda": 0,
         "cost_volume_haloed_cuda": 0, "cost_volume_bwd_prv_haloed_cuda": 0,
-        "cost_volume_bwd_nxt_haloed_cuda": 0}
+        "cost_volume_bwd_nxt_haloed_cuda": 0, "bias_mish_cuda": 0,
+        "bias_mish_bwd_cuda": 0}
     _assert_close(leaves[0].grad, leaves[2].grad)
     _assert_close(leaves[1].grad, leaves[3].grad)
 
@@ -1178,3 +1185,249 @@ def test_int8_sharded_forward_card(dev, n):
     assert float(want.abs().max()) > 0.0
     err = float((got - want).abs().max())
     assert err <= 1e-5 * max(1.0, float(want.abs().max())), err
+
+
+# ------------------------------------------------ bias + Mish (bias_mish.cu)
+
+def _mish_input(rng, shape, dev, dtype, specials=True):
+    """A channels_last (B, C, H, W) input: normal values of scale 6, and
+    values across [-30, 30] in every eighth element; with ``specials`` the
+    first elements hold 20, 20 +- an ulp, -87, NaN, -inf and +inf."""
+    v = 6.0 * rng.standard_normal(shape)
+    v.flat[::8] = rng.uniform(-30, 30, v.flat[::8].shape)
+    if specials:
+        v.flat[:7] = [20.0, np.nextafter(np.float32(20), 30),
+                      np.nextafter(np.float32(20), 0), -87.0, np.nan,
+                      -np.inf, np.inf]
+    x = torch.from_numpy(v.astype(np.float32)).to(dev, dtype)
+    return x.contiguous(memory_format=torch.channels_last)
+
+
+def _same_bits(got, want):
+    """Equal element for element, NaN where the other is NaN (the card's
+    NaN need not carry PyTorch's payload)."""
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan], want[~nan])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.bfloat16, (8, 128, 224, 512)),   # flower.l4's widest conv, b8
+    (torch.bfloat16, (64, 16, 192, 384)),   # encoder stage 1, train b32
+    (torch.float32, (8, 32, 224, 512)),
+    (torch.bfloat16, (2, 20, 9, 11)),       # C % 8 != 0: one at a time
+    (torch.float32, (3, 6, 5, 7)),
+    (torch.bfloat16, (1, 256, 7, 16)),
+])
+def test_bias_mish_forward_is_the_composition(dev, dtype, shape):
+    """The forward kernel equals bias add + mish bit for bit, with and
+    without a bias, at the cells' shapes and ragged ones."""
+    rng = np.random.RandomState(shape[1])
+    x = _mish_input(rng, shape, dev, dtype)
+    bias = _rand(rng, (shape[1],), dev, scale=2.0)
+    kernels.reset_launch_counts()
+    for b in (bias, None):
+        _same_bits(bias_mish_cuda(x, b), bias_mish_plain(x, b))
+    assert kernels.launch_counts()["bias_mish_cuda"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bias_mish_unaligned_view(dev, dtype):
+    """A channels_last view at an odd element offset takes the
+    element-wise body, with the same bits."""
+    rng = np.random.RandomState(4)
+    base = _mish_input(rng, (1, 2 * 4 * 6 * 32 + 1, 1, 1), dev, dtype,
+                       specials=False).flatten()
+    x = base[1:].view(2, 4, 6, 32).permute(0, 3, 1, 2)
+    assert x.is_contiguous(memory_format=torch.channels_last)
+    assert x.data_ptr() % 16
+    bias = _rand(rng, (32,), dev)
+    _same_bits(bias_mish_cuda(x, bias), bias_mish_plain(x, bias))
+    g = _rand(rng, x.shape, dev, dtype).contiguous(
+        memory_format=torch.channels_last)
+    dx, db = bias_mish_bwd_cuda(x, bias, g)
+    want = mish_kernel.bias_mish_backward_plain(x.cpu(), bias.cpu(), g.cpu())
+    _assert_close(dx.cpu(), want[0])
+    assert torch.allclose(db.cpu(), want[1], rtol=1e-5, atol=1e-5)
+
+
+def _grads64(x, bias, g):
+    """dx and dbias of mish(x + bias rounded to x's dtype) in float64."""
+    y = (x.double() + bias.to(x.dtype).double()[:, None, None]
+         ).requires_grad_()
+    (y * torch.tanh(torch.nn.functional.softplus(y))).backward(g.double())
+    return y.grad, y.grad.sum((0, 2, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 32, 24, 40), (2, 128, 28, 64),
+                                   (3, 20, 9, 11)])
+def test_bias_mish_backward_no_worse_than_composition(dev, dtype, shape):
+    """The backward kernels' dx and dbias against float64 autograd of the
+    composition: max and mean errors no larger than those of the
+    composition's own autograd in the same dtype."""
+    rng = np.random.RandomState(shape[1] + 1)
+    x = _mish_input(rng, shape, dev, dtype, specials=False)
+    bias = _rand(rng, (shape[1],), dev, scale=2.0)
+    g = _rand(rng, shape, dev, dtype).contiguous(
+        memory_format=torch.channels_last)
+    dx, db = bias_mish_bwd_cuda(x, bias, g)
+    xl, bl = x.clone().requires_grad_(), bias.clone().requires_grad_()
+    bias_mish_plain(xl, bl).backward(g)
+    dx64, db64 = _grads64(x, bias, g)
+    for got, comp, want in ((dx, xl.grad, dx64), (db, bl.grad, db64)):
+        e_k = (got.double() - want).abs()
+        e_c = (comp.double() - want).abs()
+        assert float(e_k.max()) <= float(e_c.max()), (e_k.max(), e_c.max())
+        assert float(e_k.mean()) <= float(e_c.mean()), (e_k.mean(),
+                                                         e_c.mean())
+    # the trainable entry runs the same kernels
+    xk, bk = x.clone().requires_grad_(), bias.clone().requires_grad_()
+    kernels.reset_launch_counts()
+    bias_mish_cuda(xk, bk).backward(g)
+    assert kernels.launch_counts()["bias_mish_bwd_cuda"] == 1
+    assert torch.equal(xk.grad, dx) and torch.equal(bk.grad, db)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bias_mish_dbias_repeats(dev, dtype):
+    """dbias (and dx) repeat bit for bit: the block sums' order depends on
+    the shape alone."""
+    rng = np.random.RandomState(9)
+    shape = (8, 64, 112, 256)
+    x = _mish_input(rng, shape, dev, dtype, specials=False)
+    bias = _rand(rng, (64,), dev)
+    g = _rand(rng, shape, dev, dtype).contiguous(
+        memory_format=torch.channels_last)
+    first = bias_mish_bwd_cuda(x, bias, g)
+    for _ in range(2):
+        again = bias_mish_bwd_cuda(x, bias, g)
+        assert torch.equal(again[0], first[0])
+        assert torch.equal(again[1], first[1])
+
+
+@pytest.mark.cuda
+def test_bias_mish_copies_and_validates(dev):
+    """A card tensor in another layout is copied to channels_last first,
+    with the composition's bits and gradients; other dtypes, widths and
+    biases raise."""
+    rng = np.random.RandomState(2)
+    x = _rand(rng, (2, 16, 5, 7), dev)             # NCHW-contiguous
+    bias = _rand(rng, (16,), dev)
+    g = _rand(rng, x.shape, dev)
+    kernels.reset_launch_counts()
+    xl = x.clone().requires_grad_()
+    y = bias_mish_cuda(xl, bias)
+    _same_bits(y, bias_mish_plain(x, bias))
+    y.backward(g)
+    _assert_close(xl.grad, bias_mish_bwd_cuda(
+        x.contiguous(memory_format=torch.channels_last), bias, g)[0])
+    counts = kernels.launch_counts()
+    assert (counts["bias_mish_cuda"], counts["bias_mish_bwd_cuda"]) == (1, 2)
+    for t, b in ((x.double(), bias.double()), (x.half(), bias.half()),
+                 (x, bias[:8]), (x[:, :0], bias[:0]),
+                 (_rand(rng, (1, 1025, 2, 2), dev), _rand(rng, (1025,),
+                                                          dev))):
+        with pytest.raises(ValueError):
+            bias_mish_cuda(t, b)
+    with pytest.raises(ValueError):
+        bias_mish_bwd_cuda(x, bias, g.bfloat16())
+
+
+@pytest.mark.cuda
+def test_bias_mish_exported_program_launches_the_kernel(dev, tmp_path):
+    """torch.export of a Mish conv keeps the epilogue as the op
+    qpwcnet::bias_mish, and the saved and loaded program runs the kernel
+    with the eager forward's bits."""
+    from qpwcnet_torch.ops import mish
+    from qpwcnet_torch.quantize import QConv
+
+    torch.manual_seed(5)
+    m = QConv(16, 32, 3, act=mish, dtype=torch.bfloat16).to(dev)
+    x = torch.randn(2, 16, 12, 20, device=dev).contiguous(
+        memory_format=torch.channels_last)
+    path = tmp_path / "conv.pt2"
+    torch.export.save(torch.export.export(m, (x,)), str(path))
+    prog = torch.export.load(str(path))
+    ops = [str(n.target) for n in prog.graph.nodes if n.op == "call_function"]
+    assert ops.count("qpwcnet.bias_mish.default") == 1, ops
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        got, want = prog.module()(x), m(x)
+    _same_bits(got, want)
+    assert kernels.launch_counts()["bias_mish_cuda"] == 2
+
+
+@pytest.fixture
+def composition(monkeypatch):
+    """Every caller of the epilogue runs the composition instead."""
+    def use():
+        monkeypatch.setattr(mish_kernel, "bias_mish_cuda", bias_mish_plain)
+    return use
+
+
+def _flow_train_grads(dev, dtype, seed=7):
+    """One flow train step (learning rate 0) of the stem_stages=2 model at
+    64x128 b2: the loss, the gradients and the launch counts."""
+    from qpwcnet_torch.data import preprocess_flow_batch, synthetic_flow_batch
+    from qpwcnet_torch.train import make_flow_train_step, plain_optimizer
+
+    model = build_flow_net(0, dev, dtype=dtype, stem_stages=2,
+                           head_scale="unit").train()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batch = preprocess_flow_batch(*synthetic_flow_batch(gen, 2, 64, 128),
+                                  out_hw=(64, 128))
+    kernels.reset_launch_counts()
+    make_flow_train_step()(model, plain_optimizer(model, 0.0), batch)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    grads = torch.cat([p.grad.flatten().double()
+                       for p in model.parameters()])
+    return grads, counts
+
+
+@pytest.mark.cuda
+def test_bias_mish_launches_in_the_flow_net(dev):
+    """stem_stages=2: a flow forward launches the forward kernel 38 times
+    (25 flower convs, 4 decoder UpConvs, 9 encoder convs of stages 2-4),
+    a train step 44 forward and 44 backward (K2's recomputed stages 0-1
+    add 6)."""
+    model = build_flow_net(0, dev, dtype=torch.bfloat16, stem_stages=2)
+    x = _rand(np.random.RandomState(1), (2, 64, 128, 6), dev, scale=0.3)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        model(x)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["bias_mish_cuda"], counts["bias_mish_bwd_cuda"]) == \
+        (38, 0), counts
+    _, counts = _flow_train_grads(dev, torch.bfloat16)
+    assert (counts["bias_mish_cuda"], counts["bias_mish_bwd_cuda"]) == \
+        (44, 44), counts
+
+
+@pytest.mark.cuda
+def test_bias_mish_train_step_grads_match_composition(dev, composition):
+    """One train step's gradients with the kernels against the
+    composition's, as the train-step checks of chip_smoke.py bound them:
+    float32 within 1e-4 (relative, all leaves together); in bf16 the
+    kernels' distance from the composition's float32 gradients at most
+    twice the composition's own bf16 distance."""
+    got = {dt: _flow_train_grads(dev, dt)[0]
+           for dt in (torch.float32, torch.bfloat16)}
+    composition()
+    want = {dt: _flow_train_grads(dev, dt)
+            for dt in (torch.float32, torch.bfloat16)}
+    assert want[torch.float32][1]["bias_mish_cuda"] == 0
+    w32 = want[torch.float32][0]
+    assert float(w32.abs().max()) > 0
+    assert float((got[torch.float32] - w32).norm()) <= 1e-4 * float(
+        w32.norm())
+    noise = float((want[torch.bfloat16][0] - w32).norm())
+    assert float((got[torch.bfloat16] - w32).norm()) <= 2.0 * noise

@@ -441,7 +441,8 @@ def test_cpu_tensors_take_the_plain_versions():
         "warp_cost_volume_cuda": 0, "cost_volume_bwd_prv_cuda": 0,
         "cost_volume_bwd_nxt_cuda": 0, "upconv_stage_cuda": 0,
         "cost_volume_haloed_cuda": 0, "cost_volume_bwd_prv_haloed_cuda": 0,
-        "cost_volume_bwd_nxt_haloed_cuda": 0}
+        "cost_volume_bwd_nxt_haloed_cuda": 0, "bias_mish_cuda": 0,
+        "bias_mish_bwd_cuda": 0}
 
 
 def test_stem_rejects_odd_sizes():
