@@ -1070,6 +1070,8 @@ def phase_slice(dev):
             models.clear()
             torch.cuda.empty_cache()
 
+        check_replays(dev, x)
+
         # The card (kernels) against the CPU (plain versions), float32,
         # at a small shape.
         from qpwcnet_torch.models import build_flow_net
@@ -1114,6 +1116,48 @@ def phase_slice(dev):
                main_counts["bias_mish_bwd_cuda"]) == (2 * 38, 0),
               f"infer bias + Mish launches {main_counts}")
     return main_counts, x
+
+
+def check_replays(dev, x, n=6):
+    """The benchmark's main path at the headline shape (bf16, exact and
+    'fast', under the caller's inference_mode): n calls on distinct
+    inputs, x first; the first runs eagerly, the second captures the
+    forward's CUDA graph and the rest copy their input in and replay.
+    Every output, all held to the end, is bit for bit the eager forward
+    of its input; the replays count n - 2 and the kernel launches n
+    forwards."""
+    import torch
+
+    from qpwcnet_torch.ops import cuda as kernels
+    from qpwcnet_torch.utils import tracing
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    xs = [x] + [torch.rand(x.shape, generator=g, device=dev) - 0.5
+                for _ in range(n - 1)]
+    for mode, kw, per in (
+            ("exact", dict(cv_impl="auto", stem_stages=2),
+             dict(K1=5, K2=2)),
+            ("fast", dict(cv_impl="fast", stem_stages=2),
+             dict(K1=4, K2=2, K3=1))):
+        m = build(torch.bfloat16, dev, **kw)
+        before = tracing.counts().get("flow_net.graph_replays", 0)
+        kernels.reset_launch_counts()
+        outs = [m(xi) for xi in xs]
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        replays = tracing.counts().get("flow_net.graph_replays", 0) - before
+        same = [torch.equal(o, m._forward(xi, False))
+                for o, xi in zip(outs, xs)]
+        log(f"  {mode} bf16 replays: {n} calls, {replays} replays, "
+            f"bit for bit eager {same}, launches {counts}")
+        check(replays == n - 2, f"{mode} replays: {replays} of {n} calls")
+        check(all(same), f"{mode} replay against eager: {same}")
+        want = counts_of(**{k: n * v for k, v in per.items()})
+        check(k_only(counts) == want and counts["bias_mish_cuda"] == n * 38,
+              f"{mode} replays: launches {counts}, expected {want} and "
+              f"{n} x 38 bias + Mish")
+        del m, outs
+    torch.cuda.empty_cache()
 
 
 def train_batch(dev, seed):

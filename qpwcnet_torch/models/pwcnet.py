@@ -17,19 +17,37 @@ the builders refuse ``stem_stages`` (and ``build_flow_net``
 ``upconv_stages``) with ``quant``, and the Decoder runs its UpConv
 modules under ``quant``, as JAX's does.
 
+PWCFlowNet's eval forward on the card replays as one CUDA graph
+(:class:`ForwardGraphs`): the first call of an input signature runs
+eagerly, the second captures the forward, later ones copy the input in,
+replay the graph and return a copy of its output. It engages by the
+module's mode and its input alone: a CUDA tensor, eval mode, no
+gradient, no ``spatial`` and no ``quant``, outside any tracer; every
+other call runs the eager forward.
+
 The forwards are spans of ``utils/tracing.py``: ``flow_net.forward`` or
 ``interp.forward``, holding ``encoder``, ``decoder`` and ``flower``;
 ``flower`` holds ``flower.l0`` (the FlowBlock), ``flower.l1`` ... (each
-upsample and UpFlowBlock) and ``flower.out`` (the last upsample).
+upsample and UpFlowBlock) and ``flower.out`` (the last upsample). A
+replayed forward records ``flow_net.forward`` alone: the inner spans are
+recorded when the graph is captured and not when it replays. The kernel
+wrappers' ``launches.*`` counters count every forward: each replay adds
+what its capture counted. The counters ``flow_net.graph_eager``,
+``flow_net.graph_captures`` and ``flow_net.graph_replays`` say which way
+each eligible call went.
 """
 
 from __future__ import annotations
 
+import collections
 import math
-from typing import Optional, Sequence, Union
+import os
+import threading
+from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from qpwcnet_torch.layout import CHANNELS_LAST, cat_channels, nchw, nhwc
 from qpwcnet_torch.models.blocks import (
@@ -205,6 +223,116 @@ class Flower(nn.Module):
         return flos
 
 
+class _Graph(NamedTuple):
+    """One captured forward: the graph, the static input it reads, the
+    static output it writes (a tensor or a list of tensors) and the
+    ``launches.*`` counts its capture made, which each replay adds."""
+    graph: torch.cuda.CUDAGraph
+    input: torch.Tensor
+    output: Union[torch.Tensor, list]
+    launches: dict
+
+
+class ForwardGraphs:
+    """A module's eval forward captured as CUDA graphs, one an input
+    signature, at most ``SLOTS`` of them, the least recently used dropped
+    first (each holds a private memory pool of about the forward's peak).
+
+    ``run(forward, x, *args)``: the first call of a signature runs
+    ``forward`` eagerly (its lazy set-up: library loads, kernel
+    attributes, cuDNN's choice of algorithm); the second captures it into
+    a static input and output; later calls copy ``x`` in, replay and
+    return a clone of the output, which the next replay does not touch.
+    A replay runs no Python of the forward, so it adds the kernel
+    wrappers' ``launches.*`` counts that the capture made: the counters
+    count the kernels each call launches, whichever way it ran.
+    The signature is the input's shape, strides, dtype and device, the
+    other arguments, the current stream (calls on two streams share no
+    static buffer) and the settings that choose kernels (cuDNN's TF32,
+    determinism and benchmark flags, the float32 matmul precision): a
+    graph replays the kernels chosen at capture.
+
+    A graph reads the module's parameters and buffers where they were at
+    capture: copies into them in place (``load_state_dict``) reach it,
+    tensors put in their place do not, so their owner calls :meth:`clear`.
+    Copies and pickles of the owner start with no graph.
+    """
+
+    SLOTS = 4
+
+    def __init__(self, name: str):
+        self.name = name
+        self._eager = f"{name}.graph_eager"
+        self._captures = f"{name}.graph_captures"
+        self._replays = f"{name}.graph_replays"
+        self._lock = threading.Lock()
+        self._entries: collections.OrderedDict = collections.OrderedDict()
+
+    def __getstate__(self):
+        return {"name": self.name}
+
+    def __setstate__(self, state):
+        self.__init__(state["name"])
+
+    def __len__(self) -> int:
+        return sum(g is not None for g in self._entries.values())
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+
+    def run(self, forward, x: torch.Tensor, *args):
+        cudnn = torch.backends.cudnn
+        key = (tuple(x.shape), x.stride(), x.dtype, x.device, args,
+               torch.cuda.current_stream(x.device).cuda_stream,
+               cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark,
+               torch.get_float32_matmul_precision())
+        with self._lock:
+            seen = key in self._entries
+            g = self._entries.pop(key, None)
+            self._entries[key] = g
+            if len(self._entries) > self.SLOTS:
+                self._entries.popitem(last=False)
+            if not seen:
+                tracing.count(self._eager)
+                return forward(x, *args)
+            with torch.cuda.device(x.device):
+                if g is None:
+                    g = self._entries[key] = self._capture(forward, x, args)
+                    tracing.count(self._captures)
+                else:
+                    g.input.copy_(x)
+                    tracing.count(self._replays)
+                    for name, n in g.launches.items():
+                        tracing.count(name, n)
+                g.graph.replay()
+            out = g.output
+            return ([t.clone() for t in out] if isinstance(out, list)
+                    else out.clone())
+
+    @staticmethod
+    def _capture(forward, x, args) -> _Graph:
+        # With a CUDA graph in the process, later torch.profiler sessions
+        # lose kernel records (every other session its first one) when
+        # CUPTI is torn down and set up again between sessions (H100,
+        # torch 2.11, CUDA 12.8); torch.profiler turns the teardown off
+        # the same way where torch.compile makes CUDA graphs.
+        os.environ.setdefault("TEARDOWN_CUPTI", "0")
+        # a plain tensor even under inference_mode, so that calls under
+        # no_grad may copy into it too
+        with torch.inference_mode(False):
+            static = torch.empty_like(x)
+        static.copy_(x)
+        graph = torch.cuda.CUDAGraph()
+        before = tracing.counts()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = forward(static, *args)
+        launches = {k: n - before.get(k, 0)
+                    for k, n in tracing.counts().items()
+                    if k.startswith("launches.") and n != before.get(k, 0)}
+        return _Graph(graph, static, out, launches)
+
+
 class PWCFlowNet(nn.Module):
     """The optical-flow model.
 
@@ -221,6 +349,11 @@ class PWCFlowNet(nn.Module):
     outputs sharded alike); forward makes the mesh active for every op.
 
     quant: a ``quantize.QuantConfig`` (module docstring).
+
+    The eval forward of a CUDA input replays as a CUDA graph where
+    :meth:`_graphable` allows (module docstring, :class:`ForwardGraphs`).
+    ``.to()``, ``.cuda()``, ``.half()`` (``_apply``) drop the graphs;
+    ``load_state_dict`` copies in place, which the graphs read.
     """
 
     def __init__(self, dtype: torch.dtype = torch.float32,
@@ -239,13 +372,34 @@ class PWCFlowNet(nn.Module):
         self.flower = Flower(dtype=dtype, cv_impl=cv_impl,
                              head_scale=head_scale, residual=residual,
                              spatial=spatial, quant=quant)
+        self.graphs = ForwardGraphs("flow_net")
 
     def forward(self, inputs: torch.Tensor, multiscale: bool = False):
         with tracing.span("flow_net.forward"):
+            if self._graphable(inputs):
+                return self.graphs.run(self._forward, inputs, multiscale)
             if self.spatial is None:
                 return self._forward(inputs, multiscale)
             with use_mesh(self.spatial.mesh):
                 return self._forward(inputs, multiscale)
+
+    def _graphable(self, inputs) -> bool:
+        """Whether this call may replay a CUDA graph: a plain CUDA tensor
+        (no fake, functional or FX tracing stand-in) into the eval forward
+        with gradients off, no H-sharded mesh (its NCCL halos) and no
+        quantization, outside torch.compile and under no dispatch mode
+        (export's fake tensors, the flop counter of
+        ``utils/profiling.py:cost_analysis``), which must see the ops."""
+        return (type(inputs) is torch.Tensor and inputs.is_cuda
+                and not self.training
+                and not torch.is_grad_enabled() and self.spatial is None
+                and self.quant is None
+                and not torch.compiler.is_compiling()
+                and _get_current_dispatch_mode() is None)
+
+    def _apply(self, fn, *args, **kwargs):
+        self.graphs.clear()
+        return super()._apply(fn, *args, **kwargs)
 
     def _forward(self, inputs: torch.Tensor, multiscale: bool):
         x = nchw(inputs)

@@ -24,7 +24,17 @@ the profiler, is what to add to a record's times to put them on it.
 
 Counters (:func:`count`, :func:`counts`) are always on: plain integers
 by name. The CUDA kernels' wrappers count their launches here
-(``ops/cuda/__init__.py:launch_counts``).
+(``ops/cuda/__init__.py:launch_counts``). The flow net counts how each
+of its eligible eval forwards on the card ran
+(``models/pwcnet.py:ForwardGraphs``): ``flow_net.graph_eager`` (the
+first call of an input signature), ``flow_net.graph_captures`` and
+``flow_net.graph_replays``.
+
+Spans are Python: a forward that replays a CUDA graph runs none of the
+code inside it. So the spans inside ``flow_net.forward`` (``encoder``,
+``flower.l0`` ...) are recorded when the graph is captured and not when
+it replays. The ``launches.*`` counters count every replay: it adds the
+counts its capture made.
 """
 
 from __future__ import annotations
