@@ -507,7 +507,7 @@ cudaError_t launch_gemm_wgmma(const ConvArgs& a, int n_sm,
 // bf16 tiles are 128 positions, or (BN 128) 64 where 128-position tiles
 // would leave half the SMs or more idle (measured: 64-row tiles win
 // there and lose wherever 128-row tiles fill more than half a wave, as
-// at the headline's stage 4; qpwcnet_torch/utils/gemm_times.py). Co must
+// at the headline's stage 4; PERF.md holds the figures). Co must
 // be a multiple of 64 (bf16: of BN); bf16 needs Cin a multiple of GEMM_K
 // (cip = Cin) and x 16-byte aligned, as TMA and the stride-2 view do: the
 // wrappers make an aligned, channel-padded copy of other inputs.

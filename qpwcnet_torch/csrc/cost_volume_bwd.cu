@@ -67,8 +67,8 @@
 //    two blocks an SM. The band built per displacement row takes 80, so
 //    three K4a blocks share an SM and overlap each other's copies,
 //    products and stores (finest level, device time: K4a 0.0985 ->
-//    0.0762 ms, K4b 0.1528 -> 0.1318 ms; python -m
-//    qpwcnet_torch.utils.cvb_split, NVIDIA H100 80GB HBM3 at 700 W).
+//    0.0762 ms, K4b 0.1528 -> 0.1318 ms; NVIDIA H100 80GB HBM3 at 700 W,
+//    recorded in PERF.md).
 //  - Staging. dacc once a block: K4a the TY output rows' runs (16 pixels),
 //    K4b the (TY+8) x 24 window pixels, of each row only the 16-byte
 //    units that hold a displacement row's 9 values that the block reads
@@ -468,8 +468,7 @@ cudaError_t launch_cvb_mma(const void* dacc, const void* src, void* out,
 // The tile height: 8 rows where the grid gives half the SMs a block, else
 // 4 rows where it does, else 2 rows. (At (16,8,16,256), 128 blocks of 8
 // rows took 3.8 / 5.5 µs of device time (K4a / K4b), 512 of 2 rows 4.9 /
-// 14.4: python -m qpwcnet_torch.utils.cvb_split, NVIDIA H100 80GB HBM3 at
-// 700 W.)
+// 14.4; NVIDIA H100 80GB HBM3 at 700 W, recorded in PERF.md.)
 template <bool REVERSED>
 cudaError_t launch_cvb_bf16(const void* dacc, const void* src, void* out,
                             int B, int H, int W, int C, int sh, int oh,

@@ -11,8 +11,8 @@ c]`` is pixel ``(2yy + py, 2xx + px)``. :func:`conv_gemm_plain` computes
 one conv by that decomposition (the same views, the same per-tap origins,
 the prepared weights' slot order, ``prep_w33`` / ``prep_wt`` of
 ``csrc/stem.cu`` and ``csrc/upconv.cu``), so a test can hold it against
-the stages' plain versions and the JAX package, and ``chip_smoke.py`` can
-hold the kernel against it. Nothing on the main path calls it.
+the stages' plain versions and the JAX package, and the card tests
+(``tests/test_torch_cuda.py``) can hold the kernel against it. Nothing on the main path calls it.
 
 TMA reads a tensor from a 16-byte-aligned address with 16-byte strides,
 and a stride-2 box of C channels must not run into the next pixel's: so

@@ -1,7 +1,6 @@
 """The bias + Mish epilogue (``ops/cuda/mish_kernel.py``) on the CPU.
 
-The kernels themselves run only on the card (tests/test_torch_cuda.py,
-chip_smoke.py). Here: CPU tensors take the composition the port ran
+The kernels themselves run only on the card (tests/test_torch_cuda*.py). Here: CPU tensors take the composition the port ran
 before the kernels, bit for bit and with the same gradients; the
 backward kernel's plain statement is no less accurate than the
 composition's autograd against float64; the blocks built on it equal a
@@ -305,7 +304,7 @@ def test_op_traces_into_export(monkeypatch, tmp_path):
 def test_one_name_reaches_every_caller(monkeypatch, caller):
     """Every caller of the epilogue looks up mish_kernel.bias_mish_cuda
     when it runs, so one assignment there swaps it everywhere (the plain
-    reference models of chip_smoke.py rest on this)."""
+    reference models of tests/test_torch_cuda_models.py rest on this)."""
     calls = []
 
     def counted(x, bias=None):

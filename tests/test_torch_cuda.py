@@ -3,15 +3,20 @@ card. Every test here is marked ``cuda`` and skips without a card.
 
 This file imports neither jax nor the JAX package, so it also runs where
 only PyTorch is installed (tests/conftest.py imports jax, hence
---noconftest):
+--noconftest). The card's whole suite, this file with the model and app
+paths of tests/test_torch_cuda_models.py and tests/test_torch_cuda_apps.py
+and the flow net's CUDA graph:
 
-    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda*.py \
+        tests/test_torch_flow_graph.py -q
 
-Shapes are small and not multiples of the kernels' tiles; chip_smoke.py
-checks the headline shapes. Tolerances: float32 sums in another order,
-1e-5 of the output magnitude; bf16 outputs, one bf16 ulp (2^-7) of it,
-four for the stem, where an early rounding flip propagates, and two for
-the upconv stage, where it moves the bias add's and Mish's roundings.
+Each kernel is held at the models' own shapes (the 448x1024 b8 headline,
+batch 1, the 256x512 b16 train step's levels, the H-sharded paths'
+levels) and at small ones that are no multiple of its tiles. Tolerances:
+float32 sums in another order, 1e-5 of the output magnitude; bf16
+outputs, one bf16 ulp (2^-7) of it, four for the stem, where an early
+rounding flip propagates, and two for the upconv stage, where it moves
+the bias add's and Mish's roundings.
 """
 
 import numpy as np
@@ -36,18 +41,25 @@ from qpwcnet_torch.ops.cuda.cost_volume_kernel import (
     cost_volume_cuda,
     cost_volume_haloed_cuda,
 )
-from qpwcnet_torch.ops.cuda import mish_kernel
+from qpwcnet_torch.ops.cuda import _build, mish_kernel
+from qpwcnet_torch.ops.cuda.conv_gemm import (
+    downconv_stage_gemm_plain,
+    upconv_stage_gemm_plain,
+)
 from qpwcnet_torch.ops.cuda.mish_kernel import (
+    bias_mish_backward_plain,
     bias_mish_bwd_cuda,
     bias_mish_cuda,
     bias_mish_plain,
 )
 from qpwcnet_torch.ops.cuda.stem_kernel import (
+    STEM_GEMM_CHANNELS,
     downconv_stage_cuda,
     downconv_stage_plain,
     downconv_stage_trainable,
 )
 from qpwcnet_torch.ops.cuda.upconv_kernel import (
+    UPCONV_GEMM_CHANNELS,
     upconv_stage_cuda,
     upconv_stage_plain,
     upconv_stage_trainable,
@@ -60,6 +72,59 @@ from qpwcnet_torch.ops.cuda.warp_cv_kernel import (
 )
 
 REL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+
+# The flow headline (448x1024, batch 8) and the (h, w, C) of its five
+# cost-volume levels, coarsest first
+B, H, W = 8, 448, 1024
+CV_LEVELS = [(14, 32, 256), (28, 64, 256), (56, 128, 128), (112, 256, 64),
+             (224, 512, 32)]
+# The flow train step (256x512, batch 16) and its levels
+TRAIN_B, TRAIN_H, TRAIN_W = 16, 256, 512
+TRAIN_LEVELS = [(8, 16, 256), (16, 32, 256), (32, 64, 128), (64, 128, 64),
+                (128, 256, 32)]
+# The H-sharded paths' kernel calls, (B, h, w, C): the headline's levels in
+# 2 H shards folded into the batch, the train step's in 4
+SPATIAL_N_FWD, SPATIAL_N_TRAIN = 2, 4
+SPATIAL_LEVELS = ([(SPATIAL_N_FWD * B, h // SPATIAL_N_FWD, w, c)
+                   for h, w, c in CV_LEVELS]
+                  + [(SPATIAL_N_TRAIN * TRAIN_B, h // SPATIAL_N_TRAIN, w, c)
+                     for h, w, c in TRAIN_LEVELS])
+# K2, (B, H, W, Ci) -> Co: encoder stages 0 and 1 of the headline (2B =
+# 16) and of batch 1, no tile multiple at Co 16 and 32, and stage 2 of the
+# headline (Co 64: the implicit GEMM, as stages 3-4)
+STEM_SHAPES = [((2 * B, H, W, 3), 16), ((2 * B, H // 2, W // 2, 16), 32),
+               ((2, H, W, 3), 16), ((2, H // 2, W // 2, 16), 32),
+               ((2, 70, 90, 3), 16), ((3, 38, 70, 16), 32),
+               ((2 * B, H // 4, W // 4, 32), 64)]
+# K2 at stage 2 of the train step (2B = 32), of batch 1 and no tile
+# multiple; stages 3 and 4 at the headline, the train step, batch 1 and no
+# tile multiple
+STEM_WIDE_SHAPES = [
+    ((2 * TRAIN_B, TRAIN_H // 4, TRAIN_W // 4, 32), 64),
+    ((2, H // 4, W // 4, 32), 64), ((3, 38, 70, 32), 64),
+    ((2 * B, H // 8, W // 8, 64), 128), ((2 * B, H // 16, W // 16, 128), 256),
+    ((2 * TRAIN_B, TRAIN_H // 8, TRAIN_W // 8, 64), 128),
+    ((2 * TRAIN_B, TRAIN_H // 16, TRAIN_W // 16, 128), 256),
+    ((2, H // 8, W // 8, 64), 128), ((2, H // 16, W // 16, 128), 256),
+    ((3, 26, 38, 64), 128), ((3, 14, 22, 128), 256)]
+# K5, (B, H, W, Ci) -> Co: decoder stages 2 and 3 of the interpolator's
+# pretraining step (2B = 16 at 256x512), of the headline, of batch 1, and
+# no tile multiple
+UPCONV_SHAPES = [((16, 32, 64, 128), 32), ((16, 64, 128, 64), 16),
+                 ((16, 56, 128, 128), 32), ((16, 112, 256, 64), 16),
+                 ((2, 32, 64, 128), 32), ((2, 64, 128, 64), 16),
+                 ((3, 13, 37, 128), 32)]
+# K5's wide stages 0 and 1 (the implicit GEMM): the pretraining step, the
+# flow train step (2B = 32), the headline, batch 1, no tile multiple
+UPCONV_WIDE_SHAPES = [((16, 8, 16, 256), 128), ((16, 16, 32, 256), 64),
+                      ((32, 8, 16, 256), 128), ((32, 16, 32, 256), 64),
+                      ((16, 14, 32, 256), 128), ((16, 28, 64, 256), 64),
+                      ((2, 14, 32, 256), 128), ((2, 28, 64, 256), 64),
+                      ((3, 7, 13, 256), 128), ((3, 9, 11, 256), 64)]
+# bias + Mish, (B, C, H, W) channels_last: flower.l4's widest conv at the
+# headline, encoder stage 1 of the train cell's step (2 x b32 frames at
+# 384x768), and C % 8 != 0 (the element-wise body)
+MISH_SHAPES = [(B, 128, H // 2, W // 2), (64, 16, 192, 384), (3, 20, 9, 11)]
 
 
 @pytest.fixture
@@ -103,18 +168,263 @@ def _device_kernels(fn, tries=3):
     return names
 
 
-def _assert_close(got, want):
+def _assert_close(got, want, rel=None):
+    """max|got - want| within ``rel`` (default: REL of want's dtype) of
+    max(1, max|want|)."""
     torch.cuda.synchronize()
     assert got.shape == want.shape and got.dtype == want.dtype
     err = float((got.float() - want.float()).abs().max())
-    tol = REL[want.dtype] * max(1.0, float(want.float().abs().max()))
+    rel = REL[want.dtype] if rel is None else rel
+    tol = rel * max(1.0, float(want.float().abs().max()))
     assert err <= tol, (err, tol)
+
+
+def _sass_counts(lib_path, cuobjdump) -> dict:
+    """HMMA (mma.sync), HGMMA (wgmma) and UTMALDG (TMA load) counts of
+    each kernel in the built library's SASS, by mangled name."""
+    import subprocess
+
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    ops, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            ops[name] = dict(HMMA=0, HGMMA=0, UTMALDG=0)
+        elif name:
+            for op in ops[name]:
+                ops[name][op] += op in line
+    return ops
+
+
+@pytest.mark.cuda
+def test_sass_tensor_cores(dev):
+    """Every bf16 mma.sync instantiation of K1, K2, K3, K4a/K4b and K5
+    issues HMMA, their float32 bodies (CUDA-core FMAs) none; every bf16
+    instantiation of the wide stages' GEMM (3 modes x 3 tiles) issues
+    wgmma (HGMMA) fed by TMA loads (UTMALDG) and no HMMA, its float32 body
+    none of the three; the old mma.sync GEMM is gone. cuobjdump ships
+    beside nvcc, so its absence fails the test."""
+    import re
+    from pathlib import Path
+
+    _build.library()
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    assert cuobjdump.exists(), f"{cuobjdump} not found"
+    ops = _sass_counts(_build.build(), cuobjdump)
+    found = {k: {} for k in ("K1", "K1 f32", "K3", "K3 f32", "K4", "K4 f32",
+                             "K5", "K5 f32", "K2", "K2 f32", "gemm",
+                             "gemm f32")}
+    rules = (("K1", r"cost_volume_mma_kernelILi(\d+)ELi(\d+)E"),
+             ("K1 f32", r"correlate_kernelIfLb0E()"),
+             ("K3", r"warp_cv_mma_kernelILi(\d+)ELi(\d+)E"),
+             ("K3 f32", r"correlate_kernelIfLb1E()"),
+             ("K4", r"cv_bwd_mma_kernelILb([01])ELi(\d+)E"),
+             ("K4 f32", r"cv_bwd_kernelI(\w+?)Lb([01])E"),
+             ("K5", r"upconv_mma_kernelILi(\d+)ELi(\d+)E"),
+             ("K5 f32", r"upconv_kernelILi(\d+)E"),
+             ("K2", r"stem_mma_kernelILi(\d+)ELb([01])E"),
+             ("K2 f32", r"stem_kernelILi(\d+)E"),
+             ("gemm", r"conv_gemm_wgmma_kernelILi(\d)ELi(\d+)ELi(\d+)E"),
+             ("gemm f32", r"conv_gemm_f32_kernelILi(\d)E"))
+    for name, counts in ops.items():
+        for key, pat in rules:
+            m = re.search(pat, name)
+            if m:
+                found[key][m.groups()] = counts
+    hmma = {k: {g: c["HMMA"] for g, c in v.items()} for k, v in found.items()}
+    for key, n in (("K1", 3), ("K3", 3), ("K4", 6), ("K5", 4), ("K2", 4)):
+        assert len(hmma[key]) == n and all(hmma[key].values()), (key, hmma)
+    for key, n in (("K1 f32", 1), ("K3 f32", 1), ("K4 f32", 2)):
+        assert len(hmma[key]) == n and not any(hmma[key].values()), (key,
+                                                                      hmma)
+    for key in ("K5 f32", "K2 f32"):
+        assert hmma[key] and not any(hmma[key].values()), (key, hmma)
+    assert sorted(found["K4 f32"]) == [("f", "0"), ("f", "1")], found
+    assert len(found["gemm"]) == 9 and all(
+        c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0
+        for c in found["gemm"].values()), found["gemm"]
+    assert len(found["gemm f32"]) == 3 and not any(
+        any(c.values()) for c in found["gemm f32"].values()), found
+    old = [n for n in ops if "conv_gemm_mma_kernel" in n]
+    assert not old, old
+
+
+# torch.profiler loses the device records of short windows once a process
+# has run much other card work (PERF.md §7), so the tests that read a
+# call's device kernels run first, before the kernels' large shapes.
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cost_volume_kernel(dev, dtype):
-    _check_cost_volume(dev, (2, 13, 37, 20), dtype)
+def test_cost_volume_launches_one_kernel(dev, dtype):
+    """A call launches one device kernel: the tensor-core body in bf16,
+    the CUDA-core correlate_kernel in float32."""
+    rng = np.random.RandomState(18)
+    prv = _rand(rng, (2, 56, 128, 128), dev, dtype)
+    nxt = _rand(rng, (2, 56, 128, 128), dev, dtype)
+    cost_volume_cuda(prv, nxt)  # builds the library
+    torch.cuda.synchronize()
+    names = _device_kernels(lambda: cost_volume_cuda(prv, nxt))
+    body = ("cost_volume_mma_kernel" if dtype == torch.bfloat16
+            else "correlate_kernel<float, false>")
+    assert len(names) == 1 and body in names[0], names
+    assert kernels.launch_counts()["cost_volume_cuda"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_warp_cost_volume_launches_one_kernel(dev, dtype):
+    """A call launches one device kernel: the tensor-core body in bf16,
+    the CUDA-core correlate_kernel in float32."""
+    rng = np.random.RandomState(23)
+    prv = _rand(rng, (2, 56, 128, 32), dev, dtype)
+    nxt = _rand(rng, (2, 56, 128, 32), dev, dtype)
+    flow = _rand(rng, (2, 56, 128, 2), dev, scale=3.0)
+    warp_cost_volume_cuda(prv, nxt, flow)  # builds the library
+    torch.cuda.synchronize()
+    names = _device_kernels(lambda: warp_cost_volume_cuda(prv, nxt, flow))
+    body = ("warp_cv_mma_kernel" if dtype == torch.bfloat16
+            else "correlate_kernel<float, true>")
+    assert len(names) == 1 and body in names[0], names
+    assert kernels.launch_counts()["warp_cost_volume_cuda"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_downconv_stage_launches_one_kernel(dev, dtype):
+    """A call launches K2 and nothing else: the kernel reads the stored
+    float32 weights and biases, so no cast or permute runs before it."""
+    rng = np.random.RandomState(16)
+    x = _rand(rng, (2, 64, 128, 16), dev, dtype, scale=0.5)
+    params = _stem_params(rng, dev, 16, 32)
+    downconv_stage_cuda(x, params, dtype)  # builds the library
+    torch.cuda.synchronize()
+    names = _device_kernels(lambda: downconv_stage_cuda(x, params, dtype))
+    assert len(names) == 1 and "stem" in names[0], names
+    assert kernels.launch_counts()["downconv_stage_cuda"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout", [(64, 128), (32, 64)])
+def test_downconv_stage_wide_launches(dev, dtype, cin, cout):
+    """A wide stage (Co 64 too) is one wrapper launch: the weights'
+    rounding into the GEMM's layout, then one GEMM a conv."""
+    rng = np.random.RandomState(20)
+    x = _rand(rng, (2, 16, 32, cin), dev, dtype, scale=0.5)
+    params = _stem_params(rng, dev, cin, cout)
+    downconv_stage_cuda(x, params, dtype)  # builds the library
+    torch.cuda.synchronize()
+    names = _device_kernels(lambda: downconv_stage_cuda(x, params, dtype))
+    assert len(names) == 4, names
+    assert "prep_w33" in names[0]
+    assert all("conv_gemm" in n for n in names[1:]), names
+    assert kernels.launch_counts()["downconv_stage_cuda"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cost_volume_bwd_launches_one_kernel(dev, dtype):
+    """A call launches one device kernel: the tensor-core body in bf16,
+    the CUDA-core cv_bwd_kernel in float32."""
+    rng = np.random.RandomState(19)
+    dacc = _rand(rng, (2, 32, 64, 81), dev, dtype)
+    src = _rand(rng, (2, 32, 64, 128), dev, dtype)
+    for kern, flag in ((cost_volume_bwd_prv_cuda, "false"),
+                       (cost_volume_bwd_nxt_cuda, "true")):
+        kern(dacc, src)  # builds the library
+        torch.cuda.synchronize()
+        names = _device_kernels(lambda: kern(dacc, src))
+        body = (f"cv_bwd_mma_kernel<{flag}" if dtype == torch.bfloat16
+                else f"cv_bwd_kernel<float, {flag}>")
+        assert len(names) == 1 and body in names[0], names
+        assert kernels.launch_counts()[kern.__name__] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_upconv_stage_wide_launches(dev, dtype):
+    """A wide stage: the weight's rounding into the GEMM's layout, then
+    one GEMM for the four phases."""
+    rng = np.random.RandomState(23)
+    x = _rand(rng, (2, 8, 16, 256), dev, dtype)
+    w = _rand(rng, (256, 128, 4, 4), dev, scale=1 / 32)
+    b = _rand(rng, (128,), dev, scale=0.1)
+    upconv_stage_cuda(x, w, b, dtype)
+    torch.cuda.synchronize()
+    names = _device_kernels(lambda: upconv_stage_cuda(x, w, b, dtype))
+    assert len(names) == 2 and "prep_wt" in names[0], names
+    assert "conv_gemm" in names[1], names
+    assert kernels.launch_counts()["upconv_stage_cuda"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ci20", "offset"])
+@pytest.mark.parametrize("cout", [64, 128])
+def test_downconv_stage_wide_unaligned_input_is_copied(dev, case, cout):
+    """The bf16 GEMM reads inputs of a multiple of 32 channels at a
+    16-byte-aligned address; the wrapper gives it an aligned,
+    channel-padded copy of any other (Ci 20; a view at a 2-element
+    offset): visible device kernels (x's copy and, for Ci 20, conv_a's
+    zero-padded weight) before the weights' rounding and the three
+    GEMMs."""
+    rng = np.random.RandomState(28)
+    cin = 20 if case == "ci20" else 32
+    x = _rand(rng, (2, 14, 22, cin), dev, torch.bfloat16, scale=0.5)
+    if case == "offset":
+        x = _misaligned(x)
+    params = _stem_params(rng, dev, cin, cout)
+    want = downconv_stage_plain(x, params, torch.bfloat16)
+    got = downconv_stage_cuda(x, params, torch.bfloat16)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 4 * REL[torch.bfloat16] * max(
+        1.0, float(want.float().abs().max()))
+    names = _device_kernels(
+        lambda: downconv_stage_cuda(x, params, torch.bfloat16))
+    assert len(names) >= 5 and "prep_w33" in names[-4], names
+    assert all("conv_gemm" in n for n in names[-3:]), names
+    assert not any("prep" in n or "conv_gemm" in n for n in names[:-4])
+    assert kernels.launch_counts()["downconv_stage_cuda"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ci20", "offset"])
+def test_upconv_stage_wide_unaligned_input_is_copied(dev, case):
+    """K5's wide stage likewise: x's aligned, channel-padded copy and the
+    padded weight, then the weights' rounding and the GEMM."""
+    rng = np.random.RandomState(29)
+    cin = 20 if case == "ci20" else 256
+    x = _rand(rng, (2, 7, 13, cin), dev, torch.bfloat16)
+    if case == "offset":
+        x = _misaligned(x)
+    w = _rand(rng, (cin, 64, 4, 4), dev, scale=(4 * cin) ** -0.5)
+    b = _rand(rng, (64,), dev, scale=0.1)
+    want = upconv_stage_plain(x, w, b, torch.bfloat16)
+    got = upconv_stage_cuda(x, w, b, torch.bfloat16)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 2 * REL[torch.bfloat16] * max(
+        1.0, float(want.float().abs().max()))
+    names = _device_kernels(lambda: upconv_stage_cuda(x, w, b,
+                                                      torch.bfloat16))
+    assert len(names) >= 3, names
+    assert "prep_wt" in names[-2] and "conv_gemm" in names[-1], names
+    assert not any("prep" in n or "conv_gemm" in n for n in names[:-2])
+    assert kernels.launch_counts()["upconv_stage_cuda"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (2, 13, 37, 20),
+    *((b, *lv) for b in (B, 1) for lv in CV_LEVELS),  # headline, batch 1
+    *((TRAIN_B, *lv) for lv in TRAIN_LEVELS),          # the train step
+    (3, 13, 37, 24), (1, 5, 7, 32),
+])
+def test_cost_volume_kernel(dev, dtype, shape):
+    _check_cost_volume(dev, shape, dtype)
 
 
 def _check_cost_volume(dev, shape, dtype=torch.bfloat16, seed=0):
@@ -158,30 +468,30 @@ def test_cost_volume_kernel_bf16_unaligned_views(dev):
     _assert_close(cost_volume_cuda(prv, nxt), cost_volume_plain(prv, nxt))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cost_volume_launches_one_kernel(dev, dtype):
-    """A call launches one device kernel: the tensor-core body in bf16,
-    the CUDA-core correlate_kernel in float32."""
-    rng = np.random.RandomState(18)
-    prv = _rand(rng, (2, 56, 128, 128), dev, dtype)
-    nxt = _rand(rng, (2, 56, 128, 128), dev, dtype)
-    cost_volume_cuda(prv, nxt)  # builds the library
-    torch.cuda.synchronize()
-    names = _device_kernels(lambda: cost_volume_cuda(prv, nxt))
-    body = ("cost_volume_mma_kernel" if dtype == torch.bfloat16
-            else "correlate_kernel<float, false>")
-    assert len(names) == 1 and body in names[0], names
-    assert kernels.launch_counts()["cost_volume_cuda"] == 1
+# Flows of std 2 clipped at 3.9 px, all inside the ±4 window, and of std
+# 6, about half beyond it
+INSIDE, BEYOND = (2.0, 3.9), (6.0, None)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_warp_cost_volume_kernel(dev, dtype):
+@pytest.mark.parametrize("shape,flow_std,clip", [
+    ((2, 13, 37, 24), 4.0, None),
+    ((B, 224, 512, 32), *INSIDE),   # the 'fast' forward's finest level
+    ((B, 224, 512, 32), *BEYOND),
+    ((1, 224, 512, 32), *BEYOND),   # batch 1
+    ((2, 13, 37, 24), *BEYOND),     # C % 8 != 0: element-wise gather
+    *((s, *f) for s in ((TRAIN_B, 128, 256, 32),  # the train step's level
+                        (2, 13, 37, 20), (2, 24, 40, 64))  # C 64: 2 chunks
+      for f in (INSIDE, BEYOND)),
+])
+def test_warp_cost_volume_kernel(dev, dtype, shape, flow_std, clip):
     rng = np.random.RandomState(1)
-    prv = _rand(rng, (2, 13, 37, 24), dev, dtype)
-    nxt = _rand(rng, (2, 13, 37, 24), dev, dtype)
-    flow = _rand(rng, (2, 13, 37, 2), dev, scale=4.0)
+    prv = _rand(rng, shape, dev, dtype)
+    nxt = _rand(rng, shape, dev, dtype)
+    flow = _rand(rng, shape[:3] + (2,), dev, scale=flow_std)
+    if clip is not None:
+        flow = flow.clamp(-clip, clip)
     kernels.reset_launch_counts()
     _assert_close(warp_cost_volume_cuda(prv, nxt, flow),
                   warp_cost_volume_plain(prv, nxt, flow))
@@ -242,24 +552,6 @@ def test_warp_cost_volume_kernel_bf16_unaligned_views(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_warp_cost_volume_launches_one_kernel(dev, dtype):
-    """A call launches one device kernel: the tensor-core body in bf16,
-    the CUDA-core correlate_kernel in float32."""
-    rng = np.random.RandomState(23)
-    prv = _rand(rng, (2, 56, 128, 32), dev, dtype)
-    nxt = _rand(rng, (2, 56, 128, 32), dev, dtype)
-    flow = _rand(rng, (2, 56, 128, 2), dev, scale=3.0)
-    warp_cost_volume_cuda(prv, nxt, flow)  # builds the library
-    torch.cuda.synchronize()
-    names = _device_kernels(lambda: warp_cost_volume_cuda(prv, nxt, flow))
-    body = ("warp_cv_mma_kernel" if dtype == torch.bfloat16
-            else "correlate_kernel<float, true>")
-    assert len(names) == 1 and body in names[0], names
-    assert kernels.launch_counts()["warp_cost_volume_cuda"] == 1
-
-
-@pytest.mark.cuda
 def test_backward_warp_image_gradient_is_reproducible(dev):
     """The warp's d_img on the card (a sorted scatter, not atomics): two
     backward passes of bf16 backward_warp at the 'fast' train step's
@@ -287,27 +579,11 @@ def test_backward_warp_image_gradient_is_reproducible(dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("cin,cout", [(3, 16), (16, 32)])
-def test_downconv_stage_kernel(dev, dtype, cin, cout):
-    rng = np.random.RandomState(2)
-    x = _rand(rng, (2, 38, 70, cin), dev, dtype)
-    params = []
-    for c in (cin, cout, cout):
-        params.append((_rand(rng, (cout, c, 3, 3), dev,
-                             scale=(9 * c) ** -0.5),
-                       _rand(rng, (cout,), dev, scale=0.1)))
-    kernels.reset_launch_counts()
-    got = downconv_stage_cuda(x, params, dtype)
-    want = downconv_stage_plain(x, params, dtype)
-    if dtype == torch.bfloat16:
-        # a one-ulp flip in conv_a or conv_aa propagates: 4 ulps
-        torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        assert err <= 4 * REL[dtype] * max(1.0,
-                                           float(want.float().abs().max()))
-    else:
-        _assert_close(got, want)
-    assert kernels.launch_counts()["downconv_stage_cuda"] == 1
+@pytest.mark.parametrize("shape,cout", [((2, 38, 70, 3), 16),
+                                        ((2, 38, 70, 16), 32),
+                                        *STEM_SHAPES])
+def test_downconv_stage_kernel(dev, dtype, shape, cout):
+    _check_stem(dev, dtype, shape, cout, seed=2)
 
 
 def _stem_params(rng, dev, cin, cout):
@@ -316,24 +592,29 @@ def _stem_params(rng, dev, cin, cout):
 
 
 def _check_stem(dev, dtype, shape, cout, seed):
-    """One K2 launch against its plain version: float32 within 1e-5 of
-    the magnitude, bf16 within four ulps (a one-ulp flip in conv_a or
-    conv_aa propagates through the later convs)."""
+    """One K2 launch against its plain version and, at the widths the
+    implicit GEMM runs, against the GEMM's own decomposition in plain
+    PyTorch (ops/cuda/conv_gemm.py): float32 within 1e-5 of the
+    magnitude, bf16 within four ulps (a one-ulp flip in conv_a or conv_aa
+    propagates through the later convs)."""
     rng = np.random.RandomState(seed)
     x = _rand(rng, shape, dev, dtype, scale=0.5)
     params = _stem_params(rng, dev, shape[-1], cout)
     kernels.reset_launch_counts()
     got = downconv_stage_cuda(x, params, dtype)
-    want = downconv_stage_plain(x, params, dtype)
-    torch.cuda.synchronize()
-    assert got.shape == want.shape == (shape[0], shape[1] // 2,
-                                       shape[2] // 2, cout)
-    assert bool(torch.isfinite(got.float()).all())
-    err = float((got.float() - want.float()).abs().max())
-    ulps = 4 if dtype == torch.bfloat16 else 1
-    assert err <= ulps * REL[dtype] * max(1.0,
-                                          float(want.float().abs().max()))
     assert kernels.launch_counts()["downconv_stage_cuda"] == 1
+    assert got.shape == (shape[0], shape[1] // 2, shape[2] // 2, cout)
+    wants = [downconv_stage_plain(x, params, dtype)]
+    if cout in STEM_GEMM_CHANNELS[dtype]:
+        wants.append(downconv_stage_gemm_plain(x, params, dtype))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got.float()).all())
+    ulps = 4 if dtype == torch.bfloat16 else 1
+    for want in wants:
+        assert got.shape == want.shape
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= ulps * REL[dtype] * max(
+            1.0, float(want.float().abs().max())), err
 
 
 @pytest.mark.cuda
@@ -389,21 +670,6 @@ def test_downconv_stage_kernel_bf16_tile_edges(dev, shape, cout):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_downconv_stage_launches_one_kernel(dev, dtype):
-    """A call launches K2 and nothing else: the kernel reads the stored
-    float32 weights and biases, so no cast or permute runs before it."""
-    rng = np.random.RandomState(16)
-    x = _rand(rng, (2, 64, 128, 16), dev, dtype, scale=0.5)
-    params = _stem_params(rng, dev, 16, 32)
-    downconv_stage_cuda(x, params, dtype)  # builds the library
-    torch.cuda.synchronize()
-    names = _device_kernels(lambda: downconv_stage_cuda(x, params, dtype))
-    assert len(names) == 1 and "stem" in names[0], names
-    assert kernels.launch_counts()["downconv_stage_cuda"] == 1
-
-
-@pytest.mark.cuda
 def test_downconv_stage_raises_for_unbuilt_widths(dev):
     """Every encoder width is built in both dtypes; other widths, and a
     Ci above the fused bf16 tile's cap, raise."""
@@ -427,6 +693,7 @@ def test_downconv_stage_raises_for_unbuilt_widths(dev):
     ((2, 14, 22, 20), 128),    # Ci 20: element loads, padded to 32
     ((12, 64, 128, 64), 128),  # 128-row tiles (they cover the SMs)
     ((16, 64, 64, 128), 256),
+    *STEM_WIDE_SHAPES,
 ])
 def test_downconv_stage_kernel_wide(dev, dtype, shape, cout):
     """The wide stages' implicit GEMM (one launch a conv) against the
@@ -439,24 +706,6 @@ def test_downconv_stage_kernel_wide(dev, dtype, shape, cout):
 def test_downconv_stage_kernel_f32_co64(dev, shape):
     """float32 at encoder stage 2 (Co 64), the GEMM's CUDA-core body."""
     _check_stem(dev, torch.float32, shape, 64, seed=19)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("cin,cout", [(64, 128), (32, 64)])
-def test_downconv_stage_wide_launches(dev, dtype, cin, cout):
-    """A wide stage (Co 64 too) is one wrapper launch: the weights'
-    rounding into the GEMM's layout, then one GEMM a conv."""
-    rng = np.random.RandomState(20)
-    x = _rand(rng, (2, 16, 32, cin), dev, dtype, scale=0.5)
-    params = _stem_params(rng, dev, cin, cout)
-    downconv_stage_cuda(x, params, dtype)  # builds the library
-    torch.cuda.synchronize()
-    names = _device_kernels(lambda: downconv_stage_cuda(x, params, dtype))
-    assert len(names) == 4, names
-    assert "prep_w33" in names[0]
-    assert all("conv_gemm" in n for n in names[1:]), names
-    assert kernels.launch_counts()["downconv_stage_cuda"] == 1
 
 
 @pytest.mark.cuda
@@ -483,10 +732,16 @@ def test_downconv_trainable_wide_grads_match_plain_autograd(dev, cin, cout):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 13, 37, 20), (1, 9, 21, 72)])
+@pytest.mark.parametrize("shape", [
+    (2, 13, 37, 20), (1, 9, 21, 72),
+    *((b, *lv) for b in (TRAIN_B, 1) for lv in TRAIN_LEVELS),
+    (3, 13, 37, 24), (4, 24, 40, 256),
+])
 def test_cost_volume_bwd_kernels(dev, dtype, shape):
-    """K4a and K4b against their plain versions; C = 72 spans three
-    channel groups of a block, the last one ragged."""
+    """K4a and K4b against their plain versions at the train step's
+    levels (b16 and b1) and odd shapes: C = 72 spans three channel groups
+    of a block, the last one ragged; C % 8 != 0; C = 256 in split
+    channel groups."""
     rng = np.random.RandomState(4)
     dacc = _rand(rng, shape[:3] + (81,), dev, dtype)
     prv = _rand(rng, shape, dev, dtype)
@@ -552,33 +807,24 @@ def test_cost_volume_bwd_kernels_bf16_unaligned_views(dev, offset):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cost_volume_bwd_launches_one_kernel(dev, dtype):
-    """A call launches one device kernel: the tensor-core body in bf16,
-    the CUDA-core cv_bwd_kernel in float32."""
-    rng = np.random.RandomState(19)
-    dacc = _rand(rng, (2, 32, 64, 81), dev, dtype)
-    src = _rand(rng, (2, 32, 64, 128), dev, dtype)
-    for kern, flag in ((cost_volume_bwd_prv_cuda, "false"),
-                       (cost_volume_bwd_nxt_cuda, "true")):
-        kern(dacc, src)  # builds the library
-        torch.cuda.synchronize()
-        names = _device_kernels(lambda: kern(dacc, src))
-        body = (f"cv_bwd_mma_kernel<{flag}" if dtype == torch.bfloat16
-                else f"cv_bwd_kernel<float, {flag}>")
-        assert len(names) == 1 and body in names[0], names
-        assert kernels.launch_counts()[kern.__name__] == 1
-
-
-@pytest.mark.cuda
-def test_cost_volume_function_grads_match_plain_autograd(dev):
+@pytest.mark.parametrize("shape", [(2, 11, 19, 24),
+                                   (TRAIN_B, *TRAIN_LEVELS[-1])])
+def test_cost_volume_function_grads_match_plain_autograd(dev, shape):
+    """The Function (K1 forward, K4a + K4b backward) against autograd of
+    the plain cost volume, float32, also at the train step's finest
+    level. Where a correlation is within rounding of 0, K1 and the plain
+    forward may round it to opposite signs and so take the other
+    leaky-ReLU slope: the plain backward of that slope difference is
+    added to autograd's gradient before the comparison."""
     rng = np.random.RandomState(5)
-    prv, nxt = (_rand(rng, (2, 11, 19, 24), dev) for _ in range(2))
+    prv, nxt = (_rand(rng, shape, dev) for _ in range(2))
     leaves = [t.clone().requires_grad_() for t in (prv, nxt, prv, nxt)]
-    g = _rand(rng, (2, 11, 19, 81), dev)
+    g = _rand(rng, shape[:3] + (81,), dev)
     kernels.reset_launch_counts()
-    CostVolumeFunction.apply(leaves[0], leaves[1]).backward(g)
-    cost_volume_plain(leaves[2], leaves[3]).backward(g)
+    out_k = CostVolumeFunction.apply(leaves[0], leaves[1])
+    out_k.backward(g)
+    out_p = cost_volume_plain(leaves[2], leaves[3])
+    out_p.backward(g)
     assert kernels.launch_counts() == {
         "cost_volume_cuda": 1, "downconv_stage_cuda": 0,
         "warp_cost_volume_cuda": 0, "cost_volume_bwd_prv_cuda": 1,
@@ -586,8 +832,14 @@ def test_cost_volume_function_grads_match_plain_autograd(dev):
         "cost_volume_haloed_cuda": 0, "cost_volume_bwd_prv_haloed_cuda": 0,
         "cost_volume_bwd_nxt_haloed_cuda": 0, "bias_mish_cuda": 0,
         "bias_mish_bwd_cuda": 0}
-    _assert_close(leaves[0].grad, leaves[2].grad)
-    _assert_close(leaves[1].grad, leaves[3].grad)
+    with torch.no_grad():
+        slope_k, slope_p = (torch.where(o > 0, 1.0, 0.1)
+                            for o in (out_k, out_p))
+        ddacc = (g * (slope_k - slope_p)).contiguous()
+        want = (leaves[2].grad + cost_volume_bwd_prv_plain(ddacc, nxt),
+                leaves[3].grad + cost_volume_bwd_nxt_plain(ddacc, prv))
+    _assert_close(leaves[0].grad, want[0])
+    _assert_close(leaves[1].grad, want[1])
 
 
 @pytest.mark.cuda
@@ -639,34 +891,39 @@ def test_wrappers_validate_inputs(dev):
 
 
 def _check_upconv(dev, dtype, shape, cout, seed):
-    """One K5 launch against its plain version: float32 within 1e-5 of
-    the magnitude, bf16 within two ulps (a one-ulp flip of the rounded
-    sum moves the bias add's and Mish's roundings too)."""
+    """One K5 launch against its plain version and, at the widths the
+    implicit GEMM runs, against the GEMM's own decomposition: float32
+    within 1e-5 of the magnitude, bf16 within two ulps (a one-ulp flip of
+    the rounded sum moves the bias add's and Mish's roundings too)."""
     rng = np.random.RandomState(seed)
     x = _rand(rng, shape, dev, dtype)
     w = _rand(rng, (shape[-1], cout, 4, 4), dev, scale=(4 * shape[-1]) ** -0.5)
     b = _rand(rng, (cout,), dev, scale=0.1)
     kernels.reset_launch_counts()
     got = upconv_stage_cuda(x, w, b, dtype)
-    want = upconv_stage_plain(x, w, b, dtype)
-    torch.cuda.synchronize()
-    assert got.shape == want.shape == (shape[0], 2 * shape[1],
-                                       2 * shape[2], cout)
-    assert bool(torch.isfinite(got.float()).all())
-    err = float((got.float() - want.float()).abs().max())
-    ulps = 2 if dtype == torch.bfloat16 else 1
-    assert err <= ulps * REL[dtype] * max(1.0,
-                                          float(want.float().abs().max()))
     assert kernels.launch_counts()["upconv_stage_cuda"] == 1
+    assert got.shape == (shape[0], 2 * shape[1], 2 * shape[2], cout)
+    wants = [upconv_stage_plain(x, w, b, dtype)]
+    if cout in UPCONV_GEMM_CHANNELS:
+        wants.append(upconv_stage_gemm_plain(x, w, b, dtype))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got.float()).all())
+    ulps = 2 if dtype == torch.bfloat16 else 1
+    for want in wants:
+        assert got.shape == want.shape
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= ulps * REL[dtype] * max(
+            1.0, float(want.float().abs().max())), err
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,cout", [((2, 13, 37, 128), 32),
-                                        ((1, 9, 70, 20), 16)])
+                                        ((1, 9, 70, 20), 16),
+                                        *UPCONV_SHAPES])
 def test_upconv_stage_kernel(dev, dtype, shape, cout):
-    """K5 against its plain version; Ci = 20 leaves a ragged channel
-    chunk, W = 70 a ragged column tile."""
+    """K5 against its plain version at the decoder's stages 2-3; Ci = 20
+    leaves a ragged channel chunk, W = 70 a ragged column tile."""
     _check_upconv(dev, dtype, shape, cout, seed=7)
 
 
@@ -700,28 +957,12 @@ def test_upconv_stage_kernel_grid(dev, dtype, shape, cout):
     ((2, 7, 13, 20), 64),      # Ci 20: element loads, padded to 32
     ((16, 28, 64, 256), 64),   # 128-row tiles (they cover the SMs)
     ((16, 14, 32, 256), 128),
+    *UPCONV_WIDE_SHAPES,
 ])
 def test_upconv_stage_kernel_wide(dev, dtype, shape, cout):
     """The wide stages' implicit GEMM (one grid z a phase) against the
     plain composition."""
     _check_upconv(dev, dtype, shape, cout, seed=22)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_upconv_stage_wide_launches(dev, dtype):
-    """A wide stage: the weight's rounding into the GEMM's layout, then
-    one GEMM for the four phases."""
-    rng = np.random.RandomState(23)
-    x = _rand(rng, (2, 8, 16, 256), dev, dtype)
-    w = _rand(rng, (256, 128, 4, 4), dev, scale=1 / 32)
-    b = _rand(rng, (128,), dev, scale=0.1)
-    upconv_stage_cuda(x, w, b, dtype)
-    torch.cuda.synchronize()
-    names = _device_kernels(lambda: upconv_stage_cuda(x, w, b, dtype))
-    assert len(names) == 2 and "prep_wt" in names[0], names
-    assert "conv_gemm" in names[1], names
-    assert kernels.launch_counts()["upconv_stage_cuda"] == 1
 
 
 @pytest.mark.cuda
@@ -751,62 +992,6 @@ def _misaligned(t):
     v.copy_(t)
     assert v.data_ptr() % 16 != 0
     return v
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", ["ci20", "offset"])
-@pytest.mark.parametrize("cout", [64, 128])
-def test_downconv_stage_wide_unaligned_input_is_copied(dev, case, cout):
-    """The bf16 GEMM reads inputs of a multiple of 32 channels at a
-    16-byte-aligned address; the wrapper gives it an aligned,
-    channel-padded copy of any other (Ci 20; a view at a 2-element
-    offset): visible device kernels (x's copy and, for Ci 20, conv_a's
-    zero-padded weight) before the weights' rounding and the three
-    GEMMs."""
-    rng = np.random.RandomState(28)
-    cin = 20 if case == "ci20" else 32
-    x = _rand(rng, (2, 14, 22, cin), dev, torch.bfloat16, scale=0.5)
-    if case == "offset":
-        x = _misaligned(x)
-    params = _stem_params(rng, dev, cin, cout)
-    want = downconv_stage_plain(x, params, torch.bfloat16)
-    got = downconv_stage_cuda(x, params, torch.bfloat16)
-    torch.cuda.synchronize()
-    err = float((got.float() - want.float()).abs().max())
-    assert err <= 4 * REL[torch.bfloat16] * max(
-        1.0, float(want.float().abs().max()))
-    names = _device_kernels(
-        lambda: downconv_stage_cuda(x, params, torch.bfloat16))
-    assert len(names) >= 5 and "prep_w33" in names[-4], names
-    assert all("conv_gemm" in n for n in names[-3:]), names
-    assert not any("prep" in n or "conv_gemm" in n for n in names[:-4])
-    assert kernels.launch_counts()["downconv_stage_cuda"] == 1
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", ["ci20", "offset"])
-def test_upconv_stage_wide_unaligned_input_is_copied(dev, case):
-    """K5's wide stage likewise: x's aligned, channel-padded copy and the
-    padded weight, then the weights' rounding and the GEMM."""
-    rng = np.random.RandomState(29)
-    cin = 20 if case == "ci20" else 256
-    x = _rand(rng, (2, 7, 13, cin), dev, torch.bfloat16)
-    if case == "offset":
-        x = _misaligned(x)
-    w = _rand(rng, (cin, 64, 4, 4), dev, scale=(4 * cin) ** -0.5)
-    b = _rand(rng, (64,), dev, scale=0.1)
-    want = upconv_stage_plain(x, w, b, torch.bfloat16)
-    got = upconv_stage_cuda(x, w, b, torch.bfloat16)
-    torch.cuda.synchronize()
-    err = float((got.float() - want.float()).abs().max())
-    assert err <= 2 * REL[torch.bfloat16] * max(
-        1.0, float(want.float().abs().max()))
-    names = _device_kernels(lambda: upconv_stage_cuda(x, w, b,
-                                                      torch.bfloat16))
-    assert len(names) >= 3, names
-    assert "prep_wt" in names[-2] and "conv_gemm" in names[-1], names
-    assert not any("prep" in n or "conv_gemm" in n for n in names[:-2])
-    assert kernels.launch_counts()["upconv_stage_cuda"] == 1
 
 
 @pytest.mark.cuda
@@ -865,12 +1050,16 @@ def test_fully_fused_flow_net_matches_plain(dev, dtype):
 
 
 @pytest.mark.cuda
-def test_upconv_trainable_grads_match_plain_autograd(dev):
+@pytest.mark.parametrize("shape", [(2, 11, 19, 64), UPCONV_SHAPES[1][0]])
+def test_upconv_trainable_grads_match_plain_autograd(dev, shape):
+    """The trainable stage (K5 forward, the unfused composition's
+    backward) against autograd of the plain version, float32, also at the
+    pretraining step's decoder stage 3."""
     rng = np.random.RandomState(8)
-    x = _rand(rng, (2, 11, 19, 64), dev)
+    x = _rand(rng, shape, dev)
     w = _rand(rng, (64, 16, 4, 4), dev, scale=1 / 16)
     b = _rand(rng, (16,), dev, scale=0.1)
-    g = _rand(rng, (2, 22, 38, 16), dev)
+    g = _rand(rng, (shape[0], 2 * shape[1], 2 * shape[2], 16), dev)
     leaves = [t.clone().requires_grad_() for t in (x, w, b, x, w, b)]
     kernels.reset_launch_counts()
     upconv_stage_trainable(leaves[0], [tuple(leaves[1:3])],
@@ -937,10 +1126,12 @@ def _halo_shards(x, n, r=4):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 13, 37, 20), (1, 9, 21, 72),
-                                   (3, 4, 19, 32), (2, 16, 40, 256)])
+                                   (3, 4, 19, 32), (2, 16, 40, 256),
+                                   *SPATIAL_LEVELS, (3, 13, 37, 24)])
 def test_haloed_kernels_match_plain(dev, dtype, shape):
     """K1, K4a and K4b in their haloed modes against the haloed plain
-    versions: C % 8 != 0, three channel groups, fewer rows than r, and
+    versions at the H-sharded forward's and train step's levels and odd
+    shapes: C % 8 != 0, three channel groups, fewer rows than r, and
     C = 256's split groups."""
     b, h, w, c = shape
     rng = np.random.RandomState(sum(shape))
@@ -964,13 +1155,16 @@ def test_haloed_kernels_match_plain(dev, dtype, shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n", [2, 4])
-def test_haloed_shards_equal_the_whole(dev, dtype, n):
+@pytest.mark.parametrize("shape", [(2, 32, 40, 32), (B, *CV_LEVELS[-1])])
+def test_haloed_shards_equal_the_whole(dev, dtype, n, shape):
     """Each shard's haloed K1, concatenated, is the unhaloed K1 on the
     whole map bit for bit (the same products in the same order); the
     shards' K4a outputs concatenated and their K4b outputs with the halo
-    rows added back to their owners equal the whole map's K4a / K4b."""
+    rows added back to their owners (float32 adds, as the exchange's
+    backward sums them) equal the whole map's K4a / K4b; also at the
+    headline's finest level."""
     rng = np.random.RandomState(n)
-    b, h, w, c, r = 2, 32, 40, 32, 4
+    (b, h, w, c), r = shape, 4
     prv = _rand(rng, (b, h, w, c), dev, dtype)
     nxt = _rand(rng, (b, h, w, c), dev, dtype)
     dacc = _rand(rng, (b, h, w, 81), dev, dtype)
@@ -993,8 +1187,8 @@ def test_haloed_shards_equal_the_whole(dev, dtype, n):
     parts = parts.unflatten(0, (b, n))
     for s in range(n):
         whole[:, s * hl:s * hl + hl + 2 * r] += parts[:, s]
-    _assert_close(whole[:, r:-r].to(dtype),
-                  cost_volume_bwd_nxt_cuda(dacc, prv))
+    _assert_close(whole[:, r:-r], cost_volume_bwd_nxt_cuda(dacc, prv).float(),
+                  REL[dtype])
 
 
 @pytest.mark.cuda
@@ -1221,6 +1415,8 @@ def _same_bits(got, want):
     (torch.bfloat16, (2, 20, 9, 11)),       # C % 8 != 0: one at a time
     (torch.float32, (3, 6, 5, 7)),
     (torch.bfloat16, (1, 256, 7, 16)),
+    (torch.float32, MISH_SHAPES[0]), (torch.float32, MISH_SHAPES[1]),
+    (torch.bfloat16, MISH_SHAPES[2]), (torch.float32, MISH_SHAPES[2]),
 ])
 def test_bias_mish_forward_is_the_composition(dev, dtype, shape):
     """The forward kernel equals bias add + mish bit for bit, with and
@@ -1296,16 +1492,22 @@ def test_bias_mish_backward_no_worse_than_composition(dev, dtype, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_bias_mish_dbias_repeats(dev, dtype):
-    """dbias (and dx) repeat bit for bit: the block sums' order depends on
-    the shape alone."""
+@pytest.mark.parametrize("shape", [(8, 64, 112, 256), *MISH_SHAPES])
+def test_bias_mish_dbias_repeats(dev, dtype, shape):
+    """The backward against its plain statement (bias_mish_backward_plain,
+    the same float32 operations): dx bit for bit in float32 and within one
+    bf16 ulp of the magnitude in bf16, dbias within 1e-5 (another
+    summation order); and dbias (and dx) repeat bit for bit: the block
+    sums' order depends on the shape alone."""
     rng = np.random.RandomState(9)
-    shape = (8, 64, 112, 256)
     x = _mish_input(rng, shape, dev, dtype, specials=False)
-    bias = _rand(rng, (64,), dev)
+    bias = _rand(rng, (shape[1],), dev)
     g = _rand(rng, shape, dev, dtype).contiguous(
         memory_format=torch.channels_last)
     first = bias_mish_bwd_cuda(x, bias, g)
+    want = bias_mish_backward_plain(x, bias, g)
+    _assert_close(first[0], want[0], 0.0 if dtype == torch.float32 else None)
+    _assert_close(first[1], want[1], 1e-5)
     for _ in range(2):
         again = bias_mish_bwd_cuda(x, bias, g)
         assert torch.equal(again[0], first[0])
@@ -1415,10 +1617,10 @@ def test_bias_mish_launches_in_the_flow_net(dev):
 @pytest.mark.cuda
 def test_bias_mish_train_step_grads_match_composition(dev, composition):
     """One train step's gradients with the kernels against the
-    composition's, as the train-step checks of chip_smoke.py bound them:
-    float32 within 1e-4 (relative, all leaves together); in bf16 the
-    kernels' distance from the composition's float32 gradients at most
-    twice the composition's own bf16 distance."""
+    composition's, as the train-step checks of test_torch_cuda_models.py
+    bound them: float32 within 1e-4 (relative, all leaves together); in
+    bf16 the kernels' distance from the composition's float32 gradients
+    at most twice the composition's own bf16 distance."""
     got = {dt: _flow_train_grads(dev, dt)[0]
            for dt in (torch.float32, torch.bfloat16)}
     composition()

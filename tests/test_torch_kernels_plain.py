@@ -2,7 +2,7 @@
 package, and the CPU dispatch rule of the kernel wrappers.
 
 The CUDA kernels themselves run only on the card (tests/test_torch_cuda.py
-and chip_smoke.py compare each with its plain version there); here each
+compares each with its plain version there); here each
 plain version is held against the JAX function its kernel replaces:
 
   * K1 ``cost_volume_plain`` vs ``cost_volume_pallas(interpret=True)``

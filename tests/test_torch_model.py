@@ -224,18 +224,22 @@ def _forbidden_imports(path: Path) -> list[str]:
 
 @pytest.mark.parametrize("check", ["static", "subprocess"])
 def test_port_imports_no_jax(check):
-    """The port package, chip_smoke.py and every module they hold import
-    neither jax (nor flax, optax or orbax) nor the JAX package:
-    statically, every ``import`` and
-    ``from`` in every file (including imports inside functions, which run
-    only on some paths); and at run time, the modules imported in a fresh
+    """The port package, the card's tests and tools (kernel_times.py,
+    tests/test_torch_cuda*.py, tests/test_torch_flow_graph.py) and every
+    module they hold import neither jax (nor flax, optax or orbax) nor
+    the JAX package: statically, every ``import`` and ``from`` in every
+    file (including imports inside functions, which run only on some
+    paths); and at run time, the modules imported in a fresh
     interpreter."""
     root = Path(__file__).resolve().parents[1]
     if check == "static":
         files = sorted((root / "qpwcnet_torch").rglob("*.py"))
         assert len(files) > 40
-        bad = [b for f in files + [root / "chip_smoke.py"]
-               for b in _forbidden_imports(f)]
+        card = [root / "kernel_times.py",
+                *sorted((root / "tests").glob("test_torch_cuda*.py")),
+                root / "tests" / "test_torch_flow_graph.py"]
+        assert len(card) == 5
+        bad = [b for f in files + card for b in _forbidden_imports(f)]
         assert not bad, bad
         return
     code = ("import sys, qpwcnet_torch, qpwcnet_torch.models, "
